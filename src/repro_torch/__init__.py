@@ -1,0 +1,22 @@
+"""Demeter on PyTorch and CUDA: the port of :mod:`repro` to an NVIDIA H100.
+
+The module layout mirrors the JAX package so each counterpart is easy to
+find (``repro_torch/core/encoder.py`` <-> ``repro/core/encoder.py``, and
+so on).  The port imports ``torch`` and numpy only -- never ``jax`` and
+nothing of ``repro`` -- so it runs on a GPU machine without JAX.
+
+Conventions shared by every module:
+
+* Packed binary HD vectors are ``int32`` tensors holding the same bit
+  patterns as ``repro``'s ``uint32`` words (torch's CPU ``uint32`` has no
+  shifts or comparisons).  Convert at the edges with
+  ``array.view(np.int32)`` / ``array.view(np.uint32)``.
+* Entry points take an explicit ``device`` and default to ``cuda``; they
+  raise when no GPU is present unless the caller passes ``device="cpu"``
+  (:func:`repro_torch.device.resolve_device`).
+* The two TPU kernels of the main path are hand-written CUDA C++ for
+  ``sm_90a`` (:mod:`repro_torch.kernels`); on CPU tensors their wrappers
+  run the plain PyTorch versions beside them.
+"""
+
+__all__ = ["core", "genomics", "kernels", "pipeline"]

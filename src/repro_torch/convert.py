@@ -1,0 +1,62 @@
+"""Carrying state across from the JAX package.
+
+``repro`` hands out numpy arrays (``np.asarray`` of its jax arrays):
+``uint32`` item memory, tie vector and prototypes, ``int32`` species tags
+and genome lengths.  :func:`from_repro_state` turns them into the port's
+tensors (packed words as ``int32`` bit patterns) and :class:`RefDB`, so
+tests can feed both packages identical state; :func:`to_repro_state` is
+the way back.  Nothing here imports ``repro``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.assoc_memory import RefDB
+from repro_torch.device import resolve_device
+
+
+def words_to_tensor(words, device: str | torch.device = "cpu") -> torch.Tensor:
+    """``uint32`` (or ``int32``) packed words -> int32 tensor, same bits."""
+    a = np.ascontiguousarray(words)
+    if a.dtype.itemsize != 4 or a.dtype.kind not in "ui":
+        raise ValueError(f"packed words must be 32-bit integers, got {a.dtype}")
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def tensor_to_words(t: torch.Tensor) -> np.ndarray:
+    """int32 packed-word tensor -> numpy ``uint32`` with the same bits."""
+    return t.detach().cpu().numpy().astype(np.int32, copy=False).view(np.uint32)
+
+
+def from_repro_state(im, tie, prototypes, proto_species, genome_lengths,
+                     species_names, *, device: str | torch.device | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, RefDB]:
+    """``repro``'s item memory, tie vector and RefDB arrays -> the port's
+    ``(im, tie, RefDB)`` on ``device`` (``None``: ``cuda``)."""
+    dev = resolve_device(device)
+    names = tuple(species_names)
+    db = RefDB(
+        prototypes=words_to_tensor(prototypes, dev),
+        proto_species=torch.from_numpy(
+            np.asarray(proto_species, np.int32).copy()).to(dev),
+        genome_lengths=torch.from_numpy(
+            np.asarray(genome_lengths, np.int32).copy()).to(dev),
+        num_species=len(names),
+        species_names=names,
+    )
+    return words_to_tensor(im, dev), words_to_tensor(tie, dev), db
+
+
+def to_repro_state(im: torch.Tensor, tie: torch.Tensor, db: RefDB) -> dict:
+    """The inverse of :func:`from_repro_state`: numpy arrays as ``repro``
+    holds them (``uint32`` words, ``int32`` tags and lengths)."""
+    return {
+        "im": tensor_to_words(im),
+        "tie": tensor_to_words(tie),
+        "prototypes": tensor_to_words(db.prototypes),
+        "proto_species": db.proto_species.cpu().numpy().astype(np.int32),
+        "genome_lengths": db.genome_lengths.cpu().numpy().astype(np.int32),
+        "species_names": db.species_names,
+    }

@@ -1,0 +1,160 @@
+"""Execution backends: named, registered implementations of the hot path.
+
+Counterpart of :mod:`repro.pipeline.backend`.  A :class:`Backend` owns the
+two bit-exact primitives that differ per substrate,
+
+  ``encode(tokens, lengths) -> (B, W)``          packed query HD vectors
+  ``agreement(queries, prototypes) -> (B, S)``   matching-bit counts
+
+and may expose the fused ``tokens_agreement(tokens, lengths,
+prototypes)`` capability (steps 3+4 with no encoded matrix in device
+memory), which :meth:`ProfilingSession.classify_batch` prefers.
+
+Registered backends:
+
+  reference        plain torch encoder + float32 +-1 matmul agreement.
+  reference_packed plain torch encoder + packed XOR+popcount agreement.
+  cuda_fused       the hand-written CUDA encoder and fused encode->search
+                   kernels (:mod:`repro_torch.pipeline.fused`).
+
+Every backend takes ``device`` (``None``: ``cuda``, raising without a
+GPU) and keeps its item memory and tie-break vector there.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core import assoc_memory, encoder, item_memory
+from repro_torch.core.hd_space import HDSpace
+from repro_torch.device import resolve_device
+from repro_torch.pipeline.config import ProfilerConfig
+from repro_torch.pipeline.options import OptionsSchema
+
+
+@runtime_checkable
+class Backend(Protocol):
+    """The two substrate-dependent primitives of the pipeline."""
+
+    name: str
+    space: HDSpace
+    device: torch.device
+
+    def encode(self, tokens: torch.Tensor, lengths: torch.Tensor
+               ) -> torch.Tensor:
+        """Read conversion (step 3): ``(B, L)`` tokens -> ``(B, W)`` packed."""
+        ...
+
+    def agreement(self, queries: torch.Tensor, prototypes: torch.Tensor
+                  ) -> torch.Tensor:
+        """AM search (step 4): ``(B, W) x (S, W)`` -> ``(B, S)`` int32."""
+        ...
+
+
+BackendFactory = Callable[..., Backend]
+
+_REGISTRY: dict[str, BackendFactory] = {}
+_SCHEMAS: dict[str, OptionsSchema] = {}
+
+#: Backends that register themselves when their module is imported.
+_LAZY_MODULES: dict[str, str] = {
+    "cuda_fused": "repro_torch.pipeline.fused",
+}
+
+
+def register_backend(name: str, schema: OptionsSchema | None = None
+                     ) -> Callable[[BackendFactory], BackendFactory]:
+    """Decorator: register a ``(config, device) -> Backend`` factory."""
+    def deco(factory: BackendFactory) -> BackendFactory:
+        if name in _REGISTRY:
+            raise ValueError(f"backend {name!r} already registered")
+        _REGISTRY[name] = factory
+        _SCHEMAS[name] = (schema if schema is not None
+                          else OptionsSchema(backend=name))
+        return factory
+    return deco
+
+
+def available_backends() -> tuple[str, ...]:
+    """Names of every registered backend (lazy entry points included)."""
+    return tuple(sorted(set(_REGISTRY) | set(_LAZY_MODULES)))
+
+
+def _materialize(name: str) -> None:
+    """Import a lazy backend module so its registration runs."""
+    if name not in _REGISTRY and name in _LAZY_MODULES:
+        import importlib
+        importlib.import_module(_LAZY_MODULES[name])
+
+
+def resolve_backend(name: str, config: ProfilerConfig, *,
+                    device: str | torch.device | None = None) -> Backend:
+    """Instantiate the backend registered under ``name`` for ``config``."""
+    _materialize(name)
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered: {available_backends()}"
+        ) from None
+    return factory(config, device=device)
+
+
+class _BackendBase:
+    """Shared state: options check, device, item memory, tie-break vector."""
+
+    name = "abstract"
+
+    def __init__(self, config: ProfilerConfig, *,
+                 device: str | torch.device | None = None):
+        schema = _SCHEMAS.get(config.backend)
+        if schema is not None:
+            schema.validate(config.options)
+        self.config = config
+        self.space = config.space
+        self.device = resolve_device(device)
+        self.im = item_memory.make_item_memory(self.space, device=self.device)
+        self.tie = item_memory.make_tie_break(self.space, device=self.device)
+
+
+@register_backend("reference")
+class ReferenceBackend(_BackendBase):
+    """Plain torch path: rolling-gram encoder + float32 +-1 matmul agreement.
+
+    The numerical oracle the kernel backends must match bit-exactly.  The
+    matmul is exact only in full float32, so TF32 is turned off on CUDA.
+    """
+
+    name = "reference"
+
+    def __init__(self, config: ProfilerConfig, *,
+                 device: str | torch.device | None = None):
+        super().__init__(config, device=device)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self._agreement = functools.partial(
+            assoc_memory.agreement_matmul, dim=self.space.dim)
+
+    def encode(self, tokens: torch.Tensor, lengths: torch.Tensor
+               ) -> torch.Tensor:
+        return encoder.encode(tokens, lengths, self.im, self.tie, self.space)
+
+    def agreement(self, queries: torch.Tensor, prototypes: torch.Tensor
+                  ) -> torch.Tensor:
+        return self._agreement(queries, prototypes)
+
+
+@register_backend("reference_packed")
+class ReferencePackedBackend(ReferenceBackend):
+    """Plain torch path with the XOR+popcount agreement."""
+
+    name = "reference_packed"
+
+    def __init__(self, config: ProfilerConfig, *,
+                 device: str | torch.device | None = None):
+        super().__init__(config, device=device)
+        self._agreement = functools.partial(
+            assoc_memory.agreement_packed_chunked, dim=self.space.dim)

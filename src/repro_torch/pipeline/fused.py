@@ -1,0 +1,98 @@
+"""``cuda_fused``: the fused encode->search backend on the H100.
+
+Counterpart of ``repro``'s ``pallas_fused`` (:mod:`repro.pipeline.fused`).
+``tokens_agreement`` runs the fused kernel
+(:mod:`repro_torch.kernels.fused_profile`): each read is encoded in
+shared memory and scored against every prototype, and the encoded
+``(B, W)`` matrix never reaches device memory.  ``encode`` -- the RefDB
+build -- runs the encoder kernel (:mod:`repro_torch.kernels.hdc_encoder`).
+On CPU tensors both run the kernels' plain torch versions.
+
+Options (validated when the session is built, so a bad tiling is a
+:class:`ValueError` there and never a launch failure mid-profile):
+
+    bb       reads per cluster tile: 1, 2, 4, 8 or 16 (default 4), at
+             most the configured batch padded to a multiple of 8.
+    cluster  blocks per cluster sharing one encoded tile: 1, 2, 4 or 8
+             (default 8).  Each block holds the encoded tile and 1/cluster
+             of the rolled item memory in shared memory; the pair must fit
+             the 227 KB a block may use.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import assoc_memory
+from repro_torch.kernels import fused_profile as _fused_profile
+from repro_torch.kernels import ops
+from repro_torch.pipeline.backend import _BackendBase, register_backend
+from repro_torch.pipeline.config import ProfilerConfig
+from repro_torch.pipeline.options import Option, OptionsSchema
+
+_DEFAULTS = {"bb": _fused_profile.DEFAULT_BB,
+             "cluster": _fused_profile.DEFAULT_CLUSTER}
+
+
+def _batch_tile(v) -> str | None:
+    if v < 1:
+        return "must be a positive int"
+    if v not in _fused_profile.BATCH_TILES:
+        return (f"must be a power of two up to "
+                f"{_fused_profile.BATCH_TILES[-1]}")
+    return None
+
+
+FUSED_OPTIONS = OptionsSchema(backend="cuda_fused", options=(
+    Option("bb", "int", default=_DEFAULTS["bb"], check=_batch_tile,
+           help="reads per cluster tile (power of two, <= 16)"),
+    Option("cluster", "int", default=_DEFAULTS["cluster"],
+           choices=_fused_profile.CLUSTER_SIZES,
+           help="blocks per cluster sharing one encoded read tile"),
+))
+
+
+@register_backend("cuda_fused", schema=FUSED_OPTIONS)
+class CudaFusedBackend(_BackendBase):
+    """Hand-written CUDA encoder + fused encode->search kernels."""
+
+    name = "cuda_fused"
+
+    def __init__(self, config: ProfilerConfig, *,
+                 device: str | torch.device | None = None):
+        super().__init__(config, device=device)
+        opts = config.options
+        self.tiles = {k: opts.get(k, v) for k, v in _DEFAULTS.items()}
+        padded_batch = 8 * ((config.batch_size + 7) // 8)
+        if self.tiles["bb"] > padded_batch:
+            raise ValueError(
+                f"cuda_fused option 'bb'={self.tiles['bb']} exceeds the "
+                f"padded batch ({config.batch_size} reads pad to "
+                f"{padded_batch}); lower bb or raise batch_size")
+        ops.fused_tile_plan(
+            config.batch_size, 0, self.space.num_words,
+            ngram=self.space.ngram, alphabet=self.space.alphabet_size,
+            **self.tiles)
+
+    def encode(self, tokens: torch.Tensor, lengths: torch.Tensor
+               ) -> torch.Tensor:
+        return ops.hdc_encode(tokens, lengths, self.im, self.tie, self.space)
+
+    def agreement(self, queries: torch.Tensor, prototypes: torch.Tensor
+                  ) -> torch.Tensor:
+        """Standalone AM search.  ``repro`` runs its ``am_matmul`` kernel
+        here, which is not ported yet: the plain version serves CPU
+        tensors, and CUDA tensors raise rather than run a stand-in."""
+        if queries.device.type != "cpu":
+            raise NotImplementedError(
+                "cuda_fused.agreement needs the am_matmul kernel, which is "
+                "not ported to CUDA yet (ROADMAP queue 2, kernel 3); the "
+                "profiling path uses tokens_agreement")
+        return assoc_memory.agreement_matmul(queries, prototypes,
+                                             self.space.dim)
+
+    def tokens_agreement(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                         prototypes: torch.Tensor) -> torch.Tensor:
+        """Steps 3+4 fused: ``(B, L)`` tokens -> ``(B, S)`` agreement."""
+        return ops.fused_agreement(tokens, lengths, self.im, self.tie,
+                                   prototypes, self.space, **self.tiles)

@@ -1,0 +1,76 @@
+"""The port stands alone: ``repro_torch`` never imports JAX or ``repro``,
+and its entry points run on the GPU unless asked for the CPU."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.core.hd_space import HDSpace
+from repro_torch.pipeline import ProfilerConfig, ProfilingSession
+
+PKG = pathlib.Path(__file__).resolve().parent.parent / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_repro_imports_in_the_port():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [(str(f.relative_to(PKG)), mod) for f in files
+           for mod in _imported_modules(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_chip_smoke_imports_no_jax_or_repro():
+    smoke = PKG.parent.parent / "chip_smoke.py"
+    bad = [m for m in _imported_modules(smoke) if m.split(".")[0] in FORBIDDEN]
+    assert not bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.pipeline, repro_torch.convert,"
+            " repro_torch.kernels.ops; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))")
+    env = {**os.environ, "PYTHONPATH": str(PKG.parent)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_session_defaults_to_cuda():
+    config = ProfilerConfig(space=HDSpace(dim=512, ngram=5))
+    if torch.cuda.is_available():
+        assert ProfilingSession(config).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ProfilingSession(config)
+    assert ProfilingSession(config, device="cpu").device.type == "cpu"
+
+
+def test_fused_backend_defaults_to_cuda():
+    from repro_torch.pipeline import resolve_backend
+
+    config = ProfilerConfig(space=HDSpace(dim=512, ngram=5),
+                            backend="cuda_fused")
+    if torch.cuda.is_available():
+        assert resolve_backend("cuda_fused", config).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            resolve_backend("cuda_fused", config)
