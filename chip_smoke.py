@@ -8,22 +8,37 @@ Phases (each prints its own lines; any failure exits non-zero and prints
 no result line):
 
 1. setup     the card's name and power limit; builds the CUDA kernels from
-             ``src/repro_torch/csrc`` with nvcc and prints the build time.
+             ``src/repro_torch/csrc`` with nvcc (one process per source,
+             all at once) and prints the build time.
 2. parity    each kernel against its plain torch version on the card, bit
              for bit, at the full width D = 40,960, n = 16: the encoder on
              256 windows of 8,192 tokens (one short, one with an even gram
              count) and on reads of lengths 0, 10, 150, 151 and 300; the
              fused kernel on 253 reads (a partial tail tile, even and zero
-             gram counts) against 1,001 prototypes.
+             gram counts) against 1,001 prototypes; both search kernels
+             (``hamming_am``, ``am_matmul``) on 253 queries against the
+             same 1,001 prototypes, and at a ragged W = 1,001, each with a
+             query equal to a prototype and one equal to a complement.
 3. main path ``ProfilingSession(..., backend="cuda_fused")`` builds the
              RefDB of a 20 species x 4,000,000 bp synthetic community
              (~9.8k prototypes, ~50 MB) and profiles 32,768 reads of 150 bp,
              with every kernel launch counter set to 0 just before and read
              just after; then each kernel is timed and held against its
              plain version at the shapes that run gave it.
-4. report    a 4 species x 200 kbp community, 2,048 reads: the cuda_fused
-             report and prototypes equal the torch ``reference`` backend's
-             on the card.
+   search    the same reads through ``cuda_packed`` and ``cuda_matmul``
+             sessions against phase 3's RefDB, each with the counters set
+             to 0 just before and read just after: the encoder and the
+             backend's search kernel must launch, the fused kernel must
+             not, and each report must equal phase 3's.  Then
+             ``cuda_fused.agreement`` (``am_matmul``) on 256 reads against
+             ``classify_batch``, and both search kernels timed at the main
+             path's shapes beside ``to_pm1`` and the library matmuls.
+4. report    a 4 species x 200 kbp community, 2,048 reads: the cuda_fused,
+             cuda_packed and cuda_matmul reports and prototypes equal the
+             torch ``reference`` backend's on the card.
+5. cli       ``python -m repro_torch.launch.profile_run --synthetic`` with
+             ``--backend cuda_packed`` and ``--backend cuda_matmul``: both
+             exit 0 and write equal report JSONs.
 
 The last lines are one JSON object per kernel list and
 ``{"ok": true, "device": {...}}``.
@@ -42,10 +57,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: Peak rates for the bound (NVIDIA H100 SXM data sheet, at 700 W): HBM3
-#: bandwidth, and the 67 T/s non-tensor 32-bit rate, taken for the 32-bit
-#: integer and logic operations both kernels do.
+#: bandwidth; the 67 T/s non-tensor 32-bit rate, taken for the 32-bit
+#: integer and logic operations of the encoder, fused and packed-search
+#: kernels; and the 989 TFLOP/s dense bf16 tensor-core rate, for the
+#: +-1 bf16 products of ``am_matmul``.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+TENSOR_BF16_FLOP_PER_S = 989e12
 
 GENOME_LEN = 4_000_000
 NUM_SPECIES = 20
@@ -100,25 +118,71 @@ def expect_equal(name: str, got, want) -> int:
     return max_abs_err(got, want)
 
 
-def score_profile(est, truth, detect: float = 0.01) -> tuple[float, float]:
-    called, present = np.asarray(est) >= detect, np.asarray(truth) > 0
-    tp = int((called & present).sum())
-    fp = int((called & ~present).sum())
-    fn = int((~called & present).sum())
-    return (tp / (tp + fp) if tp + fp else 0.0,
-            tp / (tp + fn) if tp + fn else 0.0)
-
-
 def encoder_ops(lengths, n: int, w: int) -> int:
     """Bind XORs plus one counter update per bit of every valid gram."""
     m = np.maximum(np.asarray(lengths, np.int64) - (n - 1), 0)
     return int(m.sum()) * w * ((n - 1) + 32)
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+def bound_ms(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
+             ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+
+
+def search_parity(name, q, p, dim, errs) -> None:
+    """Both search kernels against their plain versions and each other on
+    packed ``q``/``p`` whose row 0 equals prototype 0 and row 1 the
+    complement of the last prototype."""
+    from repro_torch.kernels import am_matmul, hamming_am, ops
+
+    got_h = hamming_am.hamming_am(q, p, dim=dim)
+    errs["hamming_am"] = max(errs["hamming_am"], expect_equal(
+        f"hamming_am {name}", got_h, hamming_am.hamming_am_plain(q, p,
+                                                                 dim=dim)))
+    q_pm, p_pm = ops.to_pm1(q), ops.to_pm1(p)
+    got_m = am_matmul.am_matmul(q_pm, p_pm, dim=dim)
+    errs["am_matmul"] = max(errs["am_matmul"], expect_equal(
+        f"am_matmul {name}", got_m, am_matmul.am_matmul_plain(q_pm, p_pm,
+                                                              dim=dim)))
+    expect_equal(f"am_matmul vs hamming_am {name}", got_m, got_h)
+    corners = (int(got_h[0, 0]), int(got_h[1, -1]))
+    if corners != (dim, 0):
+        fail(f"search {name}: equal / complement rows give {corners}, "
+             f"want ({dim}, 0)")
+    say(f"[parity] hamming_am == am_matmul == plain on {q.shape[0]} "
+        f"queries x {p.shape[0]} prototypes, W = {q.shape[1]} "
+        f"(bit-exact; equal row {corners[0]}, complement row {corners[1]})")
+
+
+def with_corner_rows(q, p):
+    """``q`` with row 0 = prototype 0 and row 1 = ~(last prototype)."""
+    q = q.clone()
+    q[0], q[1] = p[0], ~p[-1]
+    return q
+
+
+def run_cli(backend: str, out_dir: str) -> dict:
+    """``profile_run --synthetic`` on the card in a child process."""
+    path = os.path.join(out_dir, f"profile_run_{backend}.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.profile_run",
+           "--synthetic", "--backend", backend, "--json", path]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"profile_run --backend {backend} exited {out.returncode}:\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith(("backend ", "vs ground truth"))]
+    say(f"[cli] {' | '.join(lines)} ({time.perf_counter() - t0:.1f} s "
+        f"with start-up)")
+    with open(path) as f:
+        return json.load(f)
 
 
 def main() -> int:
@@ -134,13 +198,28 @@ def main() -> int:
     from repro_torch.core import item_memory
     from repro_torch.core.assoc_memory import window_tokens
     from repro_torch.core.hd_space import HDSpace
+    from repro_torch.eval import score_profile
     from repro_torch.genomics import synth
-    from repro_torch.kernels import _build, fused_profile, hdc_encoder
+    from repro_torch.kernels import (_build, am_matmul, fused_profile,
+                                     hamming_am, hdc_encoder, ops)
     from repro_torch.pipeline import (ProfilerConfig, ProfilingSession,
                                       SyntheticSource)
 
     dev = torch.device("cuda")
     card = card_line()
+    counters = {"hdc_encoder": hdc_encoder.hdc_encode,
+                "fused_profile": fused_profile.fused_profile,
+                "hamming_am": hamming_am.hamming_am,
+                "am_matmul": am_matmul.am_matmul}
+
+    def zero_counts() -> None:
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counters.items()}
 
     # -- 1. setup --------------------------------------------------------
     say(f"[setup] card: {card}")
@@ -156,7 +235,7 @@ def main() -> int:
     im = item_memory.make_item_memory(space, device=dev)
     tie = item_memory.make_tie_break(space, device=dev)
     imr = item_memory.rolled(im, n).contiguous()
-    errs = {"hdc_encoder": 0, "fused_profile": 0}
+    errs = {name: 0 for name in counters}
 
     # -- 2. kernel parity at full width ----------------------------------
     rng = np.random.default_rng(2206)
@@ -194,6 +273,18 @@ def main() -> int:
     say(f"[parity] fused_profile == plain on 253 reads x 1001 prototypes "
         f"(bit-exact; max agreement {int(agree.max())} of {space.dim})")
 
+    # The search kernels: the encoded windows plus random rows against the
+    # same 1,001 prototypes, then a ragged W = 1,001 (a K tail for
+    # am_matmul's 64-wide tiles, a word tail for hamming_am's 32).
+    q_search = with_corner_rows(torch.cat([enc[:200], convert.words_to_tensor(
+        rng.integers(0, 2 ** 32, (53, w), dtype=np.uint32), dev)]), protos)
+    search_parity("D=40960", q_search.contiguous(), protos, space.dim, errs)
+    p_rag = convert.words_to_tensor(rng.integers(
+        0, 2 ** 32, (1001, 1001), dtype=np.uint32), dev)
+    q_rag = with_corner_rows(convert.words_to_tensor(rng.integers(
+        0, 2 ** 32, (253, 1001), dtype=np.uint32), dev), p_rag)
+    search_parity("ragged W", q_rag.contiguous(), p_rag, 32 * 1001, errs)
+
     # -- 3. main path at full width --------------------------------------
     config = ProfilerConfig(space=space, window=8192, batch_size=256,
                             backend="cuda_fused")
@@ -205,9 +296,7 @@ def main() -> int:
         f"{NUM_READS} reads of 150 bp (made in "
         f"{time.perf_counter() - t0:.1f} s)")
     session = ProfilingSession(config)
-    hdc_encoder.hdc_encode.launches = 0
-    fused_profile.fused_profile.launches = 0
-    torch.cuda.synchronize()
+    zero_counts()
     t0 = time.perf_counter()
     db = session.build_refdb(sample.genomes)
     torch.cuda.synchronize()
@@ -216,21 +305,21 @@ def main() -> int:
     report = session.profile(sample)
     torch.cuda.synchronize()
     profile_s = time.perf_counter() - t0
-    launches = {"hdc_encoder": hdc_encoder.hdc_encode.launches,
-                "fused_profile": fused_profile.fused_profile.launches}
+    launches = read_counts()
     say(f"[main] build {build_s:.3f} s ({db.num_prototypes} prototypes, "
         f"{db.memory_bytes() / 1e6:.1f} MB AM) | profile {profile_s:.3f} s | "
         f"{NUM_READS / profile_s:.0f} reads/s")
     say(f"[main] launches {json.dumps(launches)}")
-    if min(launches.values()) < 1:
+    if min(launches["hdc_encoder"], launches["fused_profile"]) < 1:
         fail(f"main path skipped a kernel: {launches}")
-    precision, recall = score_profile(report.abundance, sample.true_abundance)
-    say(f"[main] precision {precision:.3f} recall {recall:.3f} | unmapped "
-        f"{report.unmapped_reads} multi {report.multi_reads} of "
+    m = score_profile(report.abundance, sample.true_abundance)
+    say(f"[main] precision {m.precision:.3f} recall {m.recall:.3f} | "
+        f"unmapped {report.unmapped_reads} multi {report.multi_reads} of "
         f"{report.total_reads} | top {report.top(3)}")
     if report.total_reads != NUM_READS or report.mapped_reads == 0 \
             or not np.isfinite(report.abundance).all():
         fail("main path report is empty or not finite")
+    main_report = report.to_dict()
 
     # Kernel times and parity at the shapes the main path gave them:
     # a full 256-window build batch and a 256-read query batch.
@@ -265,19 +354,30 @@ def main() -> int:
     sources = {"hdc_encoder": ("src/repro_torch/csrc/hdc_encoder.cu",
                                "src/repro/kernels/hdc_encoder.py:50"),
                "fused_profile": ("src/repro_torch/csrc/fused_profile.cu",
-                                 "src/repro/kernels/fused_profile.py:148")}
-    for name, (kfn, pfn) in kern.items():
+                                 "src/repro/kernels/fused_profile.py:148"),
+               "hamming_am": ("src/repro_torch/csrc/hamming_am.cu",
+                              "src/repro/kernels/hamming_am.py:24"),
+               "am_matmul": ("src/repro_torch/csrc/am_matmul.cu",
+                             "src/repro/kernels/am_matmul.py:31")}
+
+    def time_row(name, kfn, pfn, bound, runs, library_ms=None) -> dict:
         errs[name] = max(errs[name], expect_equal(f"{name} main-path shape",
                                                   kfn(), pfn()))
         ms = cuda_time_ms(kfn, reps=10)
         plain_ms = cuda_time_ms(pfn, reps=1)
-        b_ms, b_by = work[name]
-        rows.append({"name": name, "route": "cuda", "source": sources[name][0],
-                     "replaces": sources[name][1], "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        b_ms, b_by = bound
+        row = {"name": name, "route": "cuda", "source": sources[name][0],
+               "replaces": sources[name][1], "launches": runs[name],
+               "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
         say(f"[time] {name}: {ms:.3f} ms/launch (plain {plain_ms:.1f} ms, "
-            f"bound {b_ms:.3f} ms by {b_by}) | {card}")
+            f"bound {b_ms:.3f} ms by {b_by}{lib}) | {card}")
+        rows.append(row)
+        return row
+
+    for name, (kfn, pfn) in kern.items():
+        time_row(name, kfn, pfn, work[name], launches)
     one = db.prototypes[:1].contiguous()
     enc_ms = cuda_time_ms(lambda: fused_profile.fused_profile(
         t_rd, l_rd, imr, tie, one, dim=space.dim, **session.backend.tiles),
@@ -296,26 +396,118 @@ def main() -> int:
                 say(f"[sweep] fused_profile bb={bb} cluster={cl}: "
                     f"{ms:.3f} ms")
 
+    # -- 3b. the unfused search paths at full width -----------------------
+    search_launches = {}
+    for backend, kernel in (("cuda_packed", "hamming_am"),
+                            ("cuda_matmul", "am_matmul")):
+        sess = ProfilingSession(ProfilerConfig(
+            space=space, window=8192, batch_size=256, backend=backend))
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = sess.profile(sample, refdb=db)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs = read_counts()
+        search_launches[kernel] = runs[kernel]
+        say(f"[search] {backend}: profile {secs:.3f} s | "
+            f"{NUM_READS / secs:.0f} reads/s | launches {json.dumps(runs)}")
+        if runs["hdc_encoder"] < 1 or runs[kernel] < 1 \
+                or runs["fused_profile"] != 0:
+            fail(f"{backend} path did not run encoder + {kernel} alone: "
+                 f"{runs}")
+        if rep.to_dict() != main_report:
+            fail(f"{backend} report differs from cuda_fused's")
+    say("[search] cuda_packed and cuda_matmul reports == cuda_fused's "
+        f"({NUM_READS} reads, {db.num_prototypes} prototypes)")
+
+    zero_counts()
+    res = session.classify_queries(session.encode_reads(t_rd, l_rd), db)
+    runs = read_counts()
+    fused_res = session.classify_batch(t_rd, l_rd, refdb=db).classification
+    if runs["am_matmul"] < 1:
+        fail(f"cuda_fused.agreement did not launch am_matmul: {runs}")
+    if not (torch.equal(res.hits, fused_res.hits)
+            and torch.equal(res.category, fused_res.category)):
+        fail("cuda_fused.agreement hits differ from classify_batch's")
+    say(f"[search] cuda_fused.agreement (am_matmul) == classify_batch on "
+        f"{b_rd} reads | launches {json.dumps(runs)}")
+
+    q_rd = hdc_encoder.hdc_encode(t_rd, l_rd, imr, tie)
+    protos_main = db.prototypes
+    dim = space.dim
+    time_row("hamming_am",
+             lambda: hamming_am.hamming_am(q_rd, protos_main, dim=dim),
+             lambda: hamming_am.hamming_am_plain(q_rd, protos_main, dim=dim),
+             bound_ms((b_rd + s) * w * 4 + b_rd * s * 4, 3 * b_rd * s * w),
+             search_launches)
+    pm1_ms = cuda_time_ms(lambda: ops.to_pm1(protos_main), reps=3)
+    q_pm, p_pm = ops.to_pm1(q_rd), ops.to_pm1(protos_main)
+    k = q_pm.shape[1]
+    say(f"[time] to_pm1 of the AM ({s} x {w} words -> {s} x {k} bf16, "
+        f"{p_pm.numel() * 2 / 1e6:.1f} MB): {pm1_ms:.3f} ms | {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qf, pf = q_pm.float(), p_pm.float()
+    f32_ms = cuda_time_ms(lambda: torch.matmul(qf, pf.T), reps=3)
+    del qf, pf
+    qi, pi = q_pm.to(torch.int8), p_pm.to(torch.int8)
+    try:
+        int_mm = torch._int_mm(qi, pi.T)
+        if not torch.equal(int_mm, (2 * am_matmul.am_matmul(
+                q_pm, p_pm, dim=k) - k)):
+            fail("torch._int_mm on the +-1 operands disagrees")
+        i8_ms = cuda_time_ms(lambda: torch._int_mm(qi, pi.T), reps=3)
+        i8_line = f"{i8_ms:.3f} ms"
+    except RuntimeError as e:          # the library call refused the shape
+        i8_line = f"refused ({str(e).splitlines()[0][:120]})"
+    del qi, pi
+    say(f"[time] library on the same +-1 operands: torch.matmul float32 "
+        f"(TF32 off) {f32_ms:.3f} ms (the yardstick) | torch._int_mm int8 "
+        f"{i8_line} | {card}")
+    time_row("am_matmul",
+             lambda: am_matmul.am_matmul(q_pm, p_pm, dim=dim),
+             lambda: am_matmul.am_matmul_plain(q_pm, p_pm, dim=dim),
+             bound_ms((b_rd + s) * k * 2 + b_rd * s * 4, 2 * b_rd * s * k,
+                      TENSOR_BF16_FLOP_PER_S),
+             search_launches, library_ms=f32_ms)
+    del q_pm, p_pm
+    batch_ms = cuda_time_ms(lambda: ops.am_agreement(
+        q_rd, protos_main, dim, "matmul"), reps=3)
+    say(f"[time] one cuda_matmul search step (to_pm1 of queries and AM + "
+        f"am_matmul) at B={b_rd}, S={s}: {batch_ms:.3f} ms | {card}")
+
     # -- 4. whole-report parity on the card ------------------------------
     small = SyntheticSource(synth.CommunitySpec(
         num_species=4, genome_len=200_000, seed=5), num_reads=2048)
     reports, dbs = {}, {}
-    for backend in ("cuda_fused", "reference"):
+    for backend in ("cuda_fused", "cuda_packed", "cuda_matmul", "reference"):
         sess = ProfilingSession(ProfilerConfig(
             space=space, window=8192, batch_size=256, backend=backend))
         dbs[backend] = sess.build_refdb(small.genomes)
         reports[backend] = sess.profile(small).to_dict()
-    if not torch.equal(dbs["cuda_fused"].prototypes, dbs["reference"].prototypes):
-        fail("cuda_fused prototypes differ from the torch reference's")
-    if reports["cuda_fused"] != reports["reference"]:
-        fail("cuda_fused report differs from the torch reference's")
-    if not torch.equal(dbs["cuda_fused"].proto_species,
-                       dbs["reference"].proto_species):
-        fail("species tags differ")
+    for backend in ("cuda_fused", "cuda_packed", "cuda_matmul"):
+        if not torch.equal(dbs[backend].prototypes,
+                           dbs["reference"].prototypes):
+            fail(f"{backend} prototypes differ from the torch reference's")
+        if reports[backend] != reports["reference"]:
+            fail(f"{backend} report differs from the torch reference's")
+        if not torch.equal(dbs[backend].proto_species,
+                           dbs["reference"].proto_species):
+            fail(f"{backend} species tags differ")
     r = reports["reference"]
-    say(f"[report] cuda_fused == reference on the card: "
-        f"{dbs['reference'].num_prototypes} prototypes, {r['total_reads']} "
-        f"reads, unmapped {r['unmapped_reads']}, multi {r['multi_reads']}")
+    say(f"[report] cuda_fused == cuda_packed == cuda_matmul == reference on "
+        f"the card: {dbs['reference'].num_prototypes} prototypes, "
+        f"{r['total_reads']} reads, unmapped {r['unmapped_reads']}, multi "
+        f"{r['multi_reads']}")
+
+    # -- 5. the profile_run CLI on the card ------------------------------
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    driven = {b: run_cli(b, out_dir) for b in ("cuda_packed",
+                                                  "cuda_matmul")}
+    if driven["cuda_packed"] != driven["cuda_matmul"]:
+        fail("profile_run reports differ between cuda_packed and cuda_matmul")
+    say("[cli] profile_run --synthetic: cuda_packed and cuda_matmul "
+        "report JSONs are equal")
 
     say(card)
     say(json.dumps({"kernels": rows}))

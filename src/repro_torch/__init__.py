@@ -14,9 +14,10 @@ Conventions shared by every module:
 * Entry points take an explicit ``device`` and default to ``cuda``; they
   raise when no GPU is present unless the caller passes ``device="cpu"``
   (:func:`repro_torch.device.resolve_device`).
-* The two TPU kernels of the main path are hand-written CUDA C++ for
-  ``sm_90a`` (:mod:`repro_torch.kernels`); on CPU tensors their wrappers
-  run the plain PyTorch versions beside them.
+* Each of ``repro``'s four TPU kernels (the encoder, the fused
+  encode->search kernel and the two standalone AM searches) is
+  hand-written CUDA C++ for ``sm_90a`` (:mod:`repro_torch.kernels`); on
+  CPU tensors their wrappers run the plain PyTorch versions beside them.
 """
 
-__all__ = ["core", "genomics", "kernels", "pipeline"]
+__all__ = ["core", "eval", "genomics", "kernels", "launch", "pipeline"]

@@ -2,7 +2,12 @@
 
   hdc_encoder    the n-gram encoder (replaces the TPU ``hdc_encoder``).
   fused_profile  fused encode->search (replaces the TPU ``fused_profile``).
-  ops            session-level wrappers (``hdc_encode``, ``fused_agreement``,
+  hamming_am     packed XOR + popcount search (replaces the TPU
+                 ``hamming_am``).
+  am_matmul      +-1 bf16 tensor-core search (replaces the TPU
+                 ``am_matmul``).
+  ops            session-level wrappers (``hdc_encode``, ``to_pm1``,
+                 ``am_agreement``, ``fused_agreement``,
                  ``fused_tile_plan``).
 
 Sources live in ``repro_torch/csrc``; :mod:`repro_torch.kernels._build`

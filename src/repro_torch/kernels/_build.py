@@ -25,7 +25,7 @@ import tempfile
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("hdc_encoder", "fused_profile")
+SOURCES = ("hdc_encoder", "fused_profile", "hamming_am", "am_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -102,6 +102,18 @@ def build_all(names=SOURCES) -> dict[str, ctypes.CDLL]:
         for name in missing:
             _libs[name] = ctypes.CDLL(str(_lib_path(name, compiler)))
         return {n: _libs[n] for n in names}
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address as a ``ctypes`` pointer argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def current_stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream as a ``ctypes`` pointer argument."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def library(name: str) -> ctypes.CDLL:

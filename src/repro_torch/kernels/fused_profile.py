@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.core import assoc_memory, bitops
+from repro_torch.kernels import _build
 from repro_torch.kernels.hdc_encoder import hdc_encode_plain
 
 MAX_SMEM_BYTES = 232448
@@ -78,13 +79,7 @@ def fused_profile_plain(tokens: torch.Tensor, lengths: torch.Tensor,
     return assoc_memory.agreement_packed_chunked(q, prototypes, dim)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _lib():
-    from repro_torch.kernels import _build
-
     lib = _build.library("fused_profile")
     if not getattr(lib, "_typed", False):
         lib.fused_profile_launch.argtypes = (
@@ -167,9 +162,9 @@ def fused_profile(tokens: torch.Tensor, lengths: torch.Tensor,
         raise ValueError("fused_profile: prototypes must be 16-byte aligned")
     with torch.cuda.device(tokens.device):
         err = _lib().fused_profile_launch(
-            _ptr(tokens), _ptr(lengths), _ptr(im_rolled), _ptr(tie),
-            _ptr(protos), _ptr(out), b, length, n, alphabet, w, s, dim, bb,
-            cluster, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            *map(_build.ptr, (tokens, lengths, im_rolled, tie, protos, out)),
+            b, length, n, alphabet, w, s, dim, bb, cluster,
+            _build.current_stream())
     if err != 0:
         raise RuntimeError(f"fused_profile: kernel launch failed with CUDA "
                            f"error {err}")

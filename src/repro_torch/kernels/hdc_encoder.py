@@ -26,6 +26,7 @@ import torch
 from repro_torch.core import bitops
 from repro_torch.core.encoder import (binarize_majority, encode_grams,
                                       num_grams, valid_grams)
+from repro_torch.kernels import _build
 
 MAX_SMEM_BYTES = 232448
 #: Elements of one gram chunk's unpacked bits in the plain version.
@@ -56,13 +57,7 @@ def hdc_encode_plain(tokens: torch.Tensor, lengths: torch.Tensor,
     return binarize_majority(counts, m, tie)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _lib():
-    from repro_torch.kernels import _build
-
     lib = _build.library("hdc_encoder")
     if not getattr(lib, "_typed", False):
         lib.hdc_encode_launch.argtypes = (
@@ -128,9 +123,8 @@ def hdc_encode(tokens: torch.Tensor, lengths: torch.Tensor,
         return out
     with torch.cuda.device(tokens.device):
         err = lib.hdc_encode_launch(
-            _ptr(tokens), _ptr(lengths), _ptr(im_rolled), _ptr(tie), _ptr(out),
-            b, length, n, alphabet, w,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            *map(_build.ptr, (tokens, lengths, im_rolled, tie, out)),
+            b, length, n, alphabet, w, _build.current_stream())
     if err != 0:
         raise RuntimeError(f"hdc_encode: kernel launch failed with CUDA "
                            f"error {err} (B={b}, L={length}, W={w})")

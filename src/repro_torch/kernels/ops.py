@@ -2,18 +2,67 @@
 :mod:`repro.kernels.ops`).
 
 They take the session-level arguments (item memory, tie vector, HD
-space), build the rolled item memory and call the kernel wrappers, which
-launch on CUDA tensors and run the plain torch versions on CPU tensors.
+space, formulation), build the rolled item memory or the +-1 expansion
+and call the kernel wrappers, which launch on CUDA tensors and run the
+plain torch versions on CPU tensors.  Unlike ``repro``'s
+``am_agreement``, nothing is padded to tile multiples: the search
+kernels take ragged shapes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import item_memory
+from repro_torch.core import bitops, item_memory
 from repro_torch.core.hd_space import HDSpace
+from repro_torch.kernels import am_matmul as _am_matmul
 from repro_torch.kernels import fused_profile as _fused_profile
+from repro_torch.kernels import hamming_am as _hamming_am
 from repro_torch.kernels import hdc_encoder as _hdc_encoder
+
+#: Elements of one row chunk's int32 bit intermediate in :func:`to_pm1`
+#: (256 MB), so expanding a whole AM never holds ``(S, W, 32)`` int32.
+_PM1_CHUNK_ELEMS = 2 ** 26
+
+
+def to_pm1(packed: torch.Tensor) -> torch.Tensor:
+    """Packed bits ``(..., W)`` -> {-1, +1} bf16 ``(..., 32 W)`` (the
+    tensor-core encoding of the AM crossbar), as ``repro``'s ``to_pm1``.
+
+    Plain torch on every device, as ``repro`` runs it outside any kernel;
+    the rows are expanded a chunk at a time to bound the peak memory.
+    """
+    lead, w = packed.shape[:-1], packed.shape[-1]
+    rows = packed.reshape(-1, w)
+    out = torch.empty((rows.shape[0], 32 * w), dtype=torch.bfloat16,
+                      device=packed.device)
+    step = max(1, _PM1_CHUNK_ELEMS // max(1, 32 * w))
+    for r in range(0, rows.shape[0], step):
+        bits = bitops.unpack_bits(rows[r:r + step])
+        out[r:r + step] = bits.to(torch.bfloat16).mul_(2).sub_(1)
+    return out.reshape(*lead, 32 * w)
+
+
+def am_agreement(queries: torch.Tensor, prototypes: torch.Tensor, dim: int,
+                 formulation: str = "matmul") -> torch.Tensor:
+    """Agreement (matching bits) of every query vs every prototype.
+
+    Args:
+      queries: ``(B, W)`` int32 packed.
+      prototypes: ``(S, W)`` int32 packed.
+      formulation: ``"matmul"`` (+-1 bf16 on the tensor cores, kernel 3,
+        default) or ``"packed"`` (XOR + popcount, kernel 4).
+
+    Returns:
+      ``(B, S)`` int32 agreement in [0, dim].
+    """
+    if formulation == "matmul":
+        return _am_matmul.am_matmul(to_pm1(queries), to_pm1(prototypes),
+                                    dim=dim)
+    if formulation == "packed":
+        return _hamming_am.hamming_am(queries.contiguous(),
+                                      prototypes.contiguous(), dim=dim)
+    raise ValueError(f"unknown formulation {formulation!r}")
 
 
 def hdc_encode(tokens: torch.Tensor, lengths: torch.Tensor, im: torch.Tensor,

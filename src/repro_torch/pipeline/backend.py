@@ -14,6 +14,10 @@ Registered backends:
 
   reference        plain torch encoder + float32 +-1 matmul agreement.
   reference_packed plain torch encoder + packed XOR+popcount agreement.
+  cuda_matmul      the CUDA encoder kernel + the +-1 bf16 tensor-core
+                   search kernel (``am_matmul``).
+  cuda_packed      the CUDA encoder kernel + the packed XOR+popcount
+                   search kernel (``hamming_am``).
   cuda_fused       the hand-written CUDA encoder and fused encode->search
                    kernels (:mod:`repro_torch.pipeline.fused`).
 
@@ -31,6 +35,7 @@ import torch
 from repro_torch.core import assoc_memory, encoder, item_memory
 from repro_torch.core.hd_space import HDSpace
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.pipeline.config import ProfilerConfig
 from repro_torch.pipeline.options import OptionsSchema
 
@@ -88,6 +93,17 @@ def _materialize(name: str) -> None:
     if name not in _REGISTRY and name in _LAZY_MODULES:
         import importlib
         importlib.import_module(_LAZY_MODULES[name])
+
+
+def options_schema(name: str) -> OptionsSchema:
+    """The declared options schema of the backend registered as ``name``."""
+    _materialize(name)
+    try:
+        return _SCHEMAS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered: {available_backends()}"
+        ) from None
 
 
 def resolve_backend(name: str, config: ProfilerConfig, *,
@@ -158,3 +174,35 @@ class ReferencePackedBackend(ReferenceBackend):
         super().__init__(config, device=device)
         self._agreement = functools.partial(
             assoc_memory.agreement_packed_chunked, dim=self.space.dim)
+
+
+class _CudaKernelBackendBase(_BackendBase):
+    """The CUDA encoder kernel + one standalone AM-search kernel (the
+    kernels' plain torch versions on CPU tensors)."""
+
+    formulation = "matmul"
+
+    def encode(self, tokens: torch.Tensor, lengths: torch.Tensor
+               ) -> torch.Tensor:
+        return ops.hdc_encode(tokens, lengths, self.im, self.tie, self.space)
+
+    def agreement(self, queries: torch.Tensor, prototypes: torch.Tensor
+                  ) -> torch.Tensor:
+        return ops.am_agreement(queries, prototypes, self.space.dim,
+                                self.formulation)
+
+
+@register_backend("cuda_matmul")
+class CudaMatmulBackend(_CudaKernelBackendBase):
+    """CUDA encoder kernel + +-1 bf16 tensor-core AM-search kernel."""
+
+    name = "cuda_matmul"
+    formulation = "matmul"
+
+
+@register_backend("cuda_packed")
+class CudaPackedBackend(_CudaKernelBackendBase):
+    """CUDA encoder kernel + packed XOR+popcount AM-search kernel."""
+
+    name = "cuda_packed"
+    formulation = "packed"

@@ -5,8 +5,10 @@ Counterpart of ``repro``'s ``pallas_fused`` (:mod:`repro.pipeline.fused`).
 (:mod:`repro_torch.kernels.fused_profile`): each read is encoded in
 shared memory and scored against every prototype, and the encoded
 ``(B, W)`` matrix never reaches device memory.  ``encode`` -- the RefDB
-build -- runs the encoder kernel (:mod:`repro_torch.kernels.hdc_encoder`).
-On CPU tensors both run the kernels' plain torch versions.
+build -- and the standalone ``agreement`` are ``cuda_matmul``'s: the
+encoder kernel and the +-1 tensor-core search kernel, as ``repro``'s
+``pallas_fused`` runs ``am_matmul`` there.  On CPU tensors each runs its
+kernel's plain torch version.
 
 Options (validated when the session is built, so a bad tiling is a
 :class:`ValueError` there and never a launch failure mid-profile):
@@ -23,10 +25,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import assoc_memory
 from repro_torch.kernels import fused_profile as _fused_profile
 from repro_torch.kernels import ops
-from repro_torch.pipeline.backend import _BackendBase, register_backend
+from repro_torch.pipeline.backend import (_CudaKernelBackendBase,
+                                          register_backend)
 from repro_torch.pipeline.config import ProfilerConfig
 from repro_torch.pipeline.options import Option, OptionsSchema
 
@@ -53,10 +55,11 @@ FUSED_OPTIONS = OptionsSchema(backend="cuda_fused", options=(
 
 
 @register_backend("cuda_fused", schema=FUSED_OPTIONS)
-class CudaFusedBackend(_BackendBase):
+class CudaFusedBackend(_CudaKernelBackendBase):
     """Hand-written CUDA encoder + fused encode->search kernels."""
 
     name = "cuda_fused"
+    formulation = "matmul"
 
     def __init__(self, config: ProfilerConfig, *,
                  device: str | torch.device | None = None):
@@ -73,23 +76,6 @@ class CudaFusedBackend(_BackendBase):
             config.batch_size, 0, self.space.num_words,
             ngram=self.space.ngram, alphabet=self.space.alphabet_size,
             **self.tiles)
-
-    def encode(self, tokens: torch.Tensor, lengths: torch.Tensor
-               ) -> torch.Tensor:
-        return ops.hdc_encode(tokens, lengths, self.im, self.tie, self.space)
-
-    def agreement(self, queries: torch.Tensor, prototypes: torch.Tensor
-                  ) -> torch.Tensor:
-        """Standalone AM search.  ``repro`` runs its ``am_matmul`` kernel
-        here, which is not ported yet: the plain version serves CPU
-        tensors, and CUDA tensors raise rather than run a stand-in."""
-        if queries.device.type != "cpu":
-            raise NotImplementedError(
-                "cuda_fused.agreement needs the am_matmul kernel, which is "
-                "not ported to CUDA yet (ROADMAP queue 2, kernel 3); the "
-                "profiling path uses tokens_agreement")
-        return assoc_memory.agreement_matmul(queries, prototypes,
-                                             self.space.dim)
 
     def tokens_agreement(self, tokens: torch.Tensor, lengths: torch.Tensor,
                          prototypes: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ value check -- next to its registry entry
 (:func:`repro_torch.pipeline.backend.register_backend` takes the schema).
 Unknown names and ill-typed values fail with one uniform, friendly
 :class:`ValueError` on every backend at session construction, never as a
-shape crash or a silent ignore mid-profile.
+shape crash or a silent ignore mid-profile.  The same declaration types
+``profile_run --backend-option KEY=VALUE`` strings (:meth:`parse_cli`)
+and lists each backend's options (``--list-backends``, :meth:`describe`).
 """
 
 from __future__ import annotations
@@ -50,6 +52,14 @@ class Option:
         if self.kind not in _KINDS:
             raise ValueError(f"option {self.name!r}: unknown kind "
                              f"{self.kind!r}; one of {sorted(_KINDS)}")
+
+    def describe(self) -> str:
+        """``name=kind (default ...)  help`` row for ``--list-backends``."""
+        spec = self.kind
+        if self.choices is not None:
+            spec = "|".join(str(c) for c in self.choices)
+        return f"{self.name}={spec} (default {self.default!r})" + (
+            f"  {self.help}" if self.help else "")
 
 
 class OptionError(ValueError):
@@ -123,3 +133,47 @@ class OptionsSchema:
             self.check_value(opt, value)
             out[name] = value
         return out
+
+    def parse_cli(self, name: str, raw: str) -> object:
+        """Coerce a ``--backend-option`` raw string by the declared kind."""
+        opt = self.option(name)
+        if opt is None:
+            raise self.unknown_error(name)
+        value = coerce(raw, opt.kind)
+        if value is None:
+            _, label = _KINDS[opt.kind]
+            raise OptionError(f"{self.backend} option {name!r} must be "
+                              f"{label}, got {raw!r}")
+        self.check_value(opt, value)
+        return value
+
+    def describe(self) -> list[str]:
+        """One row per option (empty for option-less backends)."""
+        return [o.describe() for o in self.options]
+
+
+def coerce(raw: str, kind: str) -> object | None:
+    """Parse a CLI string as ``kind``; None when it doesn't parse."""
+    if kind == "str":
+        return raw
+    if kind == "bool":
+        low = raw.lower()
+        if low in ("true", "1", "yes"):
+            return True
+        if low in ("false", "0", "no"):
+            return False
+        return None
+    try:
+        as_int = int(raw)
+    except ValueError:
+        as_int = None
+    if kind == "int":
+        return as_int
+    # number: prefer the int reading (keeps e.g. seed=3 an int), fall
+    # back to float
+    if as_int is not None:
+        return as_int
+    try:
+        return float(raw)
+    except ValueError:
+        return None

@@ -30,6 +30,9 @@ def _imported_modules(path: pathlib.Path):
 def test_no_jax_or_repro_imports_in_the_port():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
+    names = {str(f.relative_to(PKG)) for f in files}
+    assert {"eval.py", "launch/profile_run.py",
+            "kernels/am_matmul.py", "kernels/hamming_am.py"} <= names
     bad = [(str(f.relative_to(PKG)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -44,7 +47,8 @@ def test_chip_smoke_imports_no_jax_or_repro():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.pipeline, repro_torch.convert,"
-            " repro_torch.kernels.ops; "
+            " repro_torch.kernels.ops, repro_torch.eval,"
+            " repro_torch.launch.profile_run; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = {**os.environ, "PYTHONPATH": str(PKG.parent)}
@@ -74,3 +78,18 @@ def test_fused_backend_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             resolve_backend("cuda_fused", config)
+
+
+@pytest.mark.parametrize("backend", ["cuda_matmul", "cuda_packed"])
+def test_unfused_backends_default_to_cuda(backend):
+    from repro_torch.pipeline import resolve_backend
+
+    config = ProfilerConfig(space=HDSpace(dim=512, ngram=5), backend=backend)
+    if torch.cuda.is_available():
+        assert resolve_backend(backend, config).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            resolve_backend(backend, config)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ProfilingSession(config)
+    assert ProfilingSession(config, device="cpu").device.type == "cpu"

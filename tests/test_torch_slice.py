@@ -1,11 +1,14 @@
 """The port's main path as a whole against ``repro``, on the CPU.
 
 The same config and synthetic community go through ``repro``'s
-``reference`` and ``pallas_fused`` (Pallas in interpret mode) sessions
-and the port's ``reference``, ``reference_packed`` and ``cuda_fused``
+``reference``, ``pallas_fused``, ``pallas_matmul`` and ``pallas_packed``
+(Pallas in interpret mode) sessions and the port's ``reference``,
+``reference_packed``, ``cuda_matmul``, ``cuda_packed`` and ``cuda_fused``
 sessions (their kernels' plain torch versions on the CPU).  Prototypes,
 ``ProfileReport.to_dict()``, fingerprints and the RefDB store must agree
-exactly.
+exactly.  ``pallas_matmul`` and ``pallas_packed`` profile against the
+``reference`` RefDB (``refdb=``), so their interpret-mode work is the
+query path alone.
 """
 
 import dataclasses
@@ -34,7 +37,10 @@ from repro_torch.pipeline import (ArraySource, ProfilerConfig,
 SPACE = dict(dim=512, ngram=5, z_threshold=3.0)
 SPEC = dict(num_species=4, genome_len=6_000, seed=11)
 CONFIG = dict(window=1024, batch_size=16)
-PORT_BACKENDS = ("reference", "reference_packed", "cuda_fused")
+PORT_BACKENDS = ("reference", "reference_packed", "cuda_matmul",
+                 "cuda_packed", "cuda_fused")
+#: The port's unfused kernel backends and their ``repro`` twins.
+TWINS = {"cuda_matmul": "pallas_matmul", "cuda_packed": "pallas_packed"}
 
 
 def _jax_config(backend, **kw):
@@ -72,6 +78,11 @@ def jax_runs(community):
         db = s.build_refdb(genomes)
         out[backend] = (np.asarray(db.prototypes),
                         s.profile(JaxArraySource(toks, lens)).to_dict())
+    ref_db = JaxSession(_jax_config("reference")).build_refdb(genomes)
+    for backend in TWINS.values():
+        s = JaxSession(_jax_config(backend))
+        out[backend] = (None, s.profile(JaxArraySource(toks, lens),
+                                        refdb=ref_db).to_dict())
     return out
 
 
@@ -104,6 +115,26 @@ def test_report_matches_repro(jax_runs, port_runs, backend):
     assert jax_runs["pallas_fused"][1] == want
     assert port_runs[backend][1] == want
     assert want["multi_reads"] + want["unmapped_reads"] < want["total_reads"]
+
+
+@pytest.mark.parametrize("backend", sorted(TWINS))
+def test_unfused_backends_match_their_repro_twins(jax_runs, port_runs,
+                                                  backend):
+    assert port_runs[backend][1] == jax_runs[TWINS[backend]][1]
+    np.testing.assert_array_equal(port_runs[backend][0],
+                                  jax_runs["reference"][0])
+
+
+@pytest.mark.parametrize("backend", sorted(TWINS))
+def test_unfused_batches_carry_queries(community, backend):
+    genomes, toks, lens = community
+    s = ProfilingSession(_config(backend), device="cpu")
+    s.build_refdb(genomes)
+    res = s.classify_batch(toks[:16], lens[:16])
+    assert res.queries is not None and res.queries.shape == (16, 16)
+    again = s.classify_queries(s.encode_reads(toks[:16], lens[:16]))
+    assert torch.equal(res.classification.hits, again.hits)
+    assert torch.equal(res.classification.category, again.category)
 
 
 def test_fused_batches_carry_no_queries(community):
@@ -262,7 +293,33 @@ def test_cuda_fused_agreement_plain_on_cpu():
                        assoc_memory.agreement_packed_chunked(q, p, 512))
 
 
+def test_cuda_fused_agreement_matches_repro():
+    """``cuda_fused.agreement`` (``am_matmul``'s plain version on the CPU)
+    equals ``repro``'s ``pallas_fused.agreement`` (Pallas ``am_matmul`` in
+    interpret mode)."""
+    from repro.pipeline import resolve_backend as jax_resolve
+
+    rng = np.random.default_rng(12)
+    q = rng.integers(0, 2 ** 32, (9, 16), dtype=np.uint32)
+    p = rng.integers(0, 2 ** 32, (130, 16), dtype=np.uint32)
+    q[0] = p[3]
+    want = np.asarray(jax_resolve("pallas_fused", _jax_config(
+        "pallas_fused")).agreement(q, p))
+    s = ProfilingSession(_config("cuda_fused"), device="cpu")
+    got = s.backend.agreement(convert.words_to_tensor(q),
+                              convert.words_to_tensor(p))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[0, 3] == SPACE["dim"]
+
+
 def test_option_less_backends_reject_options():
     with pytest.raises(ValueError, match="reference takes no options"):
         ProfilingSession(_config("reference", backend_options={"bb": 4}),
+                         device="cpu")
+
+
+@pytest.mark.parametrize("backend", sorted(TWINS))
+def test_unfused_backends_take_no_options(backend):
+    with pytest.raises(ValueError, match=f"{backend} takes no options"):
+        ProfilingSession(_config(backend, backend_options={"bb": 4}),
                          device="cpu")
