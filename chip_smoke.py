@@ -13,9 +13,13 @@ no result line):
 2. parity    each kernel against its plain torch version on the card, bit
              for bit, at the full width D = 40,960, n = 16: the encoder on
              256 windows of 8,192 tokens (one short, one with an even gram
-             count) and on reads of lengths 0, 10, 150, 151 and 300; the
-             fused kernel on 253 reads (a partial tail tile, even and zero
-             gram counts) against 1,001 prototypes; both search kernels
+             count, 40 whose gram counts m straddle the bit-sliced
+             counters' plane boundaries 2^k - 1, 2^k, 2^k + 1) and on reads
+             of lengths 0, 10, 150, 151 and 300; the fused kernel on 253
+             reads (a partial tail tile, even and zero gram counts, m at
+             plane boundaries) against 1,001 prototypes, at the default
+             tiling, at bb 32 / cluster 2 and at bb 16 / cluster 8; both
+             search kernels
              (``hamming_am``, ``am_matmul``) on 253 queries against the
              same 1,001 prototypes, and at a ragged W = 1,001, each with a
              query equal to a prototype and one equal to a complement.
@@ -24,7 +28,8 @@ no result line):
              (~9.8k prototypes, ~50 MB) and profiles 32,768 reads of 150 bp,
              with every kernel launch counter set to 0 just before and read
              just after; then each kernel is timed and held against its
-             plain version at the shapes that run gave it.
+             plain version at the shapes that run gave it, beside its
+             bound (and, in the text line, its PR 12 time from PERF.md).
    search    the same reads through ``cuda_packed`` and ``cuda_matmul``
              sessions against phase 3's RefDB, each with the counters set
              to 0 just before and read just after: the encoder and the
@@ -32,7 +37,9 @@ no result line):
              not, and each report must equal phase 3's.  Then
              ``cuda_fused.agreement`` (``am_matmul``) on 256 reads against
              ``classify_batch``, and both search kernels timed at the main
-             path's shapes beside ``to_pm1`` and the library matmuls.
+             path's shapes beside ``to_pm1`` and the library calls
+             (float32 and bf16 ``torch.mm``, ``torch._int_mm`` on int8
+             +-1 operands with S padded to a multiple of 8).
 4. report    a 4 species x 200 kbp community, 2,048 reads: the cuda_fused,
              cuda_packed and cuda_matmul reports and prototypes equal the
              torch ``reference`` backend's on the card.
@@ -56,14 +63,32 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: Peak rates for the bound (NVIDIA H100 SXM data sheet, at 700 W): HBM3
-#: bandwidth; the 67 T/s non-tensor 32-bit rate, taken for the 32-bit
-#: integer and logic operations of the encoder, fused and packed-search
-#: kernels; and the 989 TFLOP/s dense bf16 tensor-core rate, for the
-#: +-1 bf16 products of ``am_matmul``.
+#: Peak rates for the bound.  NVIDIA H100 SXM data sheet (at 700 W): HBM3
+#: bandwidth and 989 TFLOP/s dense bf16 (am_matmul's +-1 products).  CUDA
+#: C++ Programming Guide, arithmetic-instruction throughput table, compute
+#: capability 9.0: 32-bit integer add and logic at 64 a clock per SM, for
+#: the encode's integer work.  Rates given a clock are taken at the SM
+#: clock nvidia-smi reports (clocks.max.sm) times the SM count.
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
 TENSOR_BF16_FLOP_PER_S = 989e12
+INT32_OPS_PER_SM_CLOCK = 64
+#: The B x S x D bit agreements of fused_profile and hamming_am, counted
+#: as 2 B S D operations (an AND and an add a bit), are priced at the
+#: rate the card issues mma.sync m16n8k256 b1 .and.popc: 0.471 a clock
+#: per SM, 16 x 8 x 256 bits each (tools/search_mma_probe.py on the
+#: NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  No b1 rate is published,
+#: and this one is about 4x the 1,979 TOP/s int8 peak, so the int8 rate
+#: would not be the least time.
+B1_MMA_PER_SM_CLOCK = 0.471
+B1_OPS_PER_MMA = 2 * 16 * 8 * 256
+#: Integer operations per word-gram of the least encode formulation known:
+#: one XOR of the rolling bind (a pair-table word) and one carry-save full
+#: adder (two LOP3) of the bit-sliced counting.
+ENCODE_OPS_PER_WORD_GRAM = 3
+#: Each kernel's PR 12 time a launch (chip_smoke, NVIDIA H100 80GB HBM3,
+#: 700.00 W; PERF.md), printed in the [time] lines beside this run's.
+PR12_MS = {"hdc_encoder": 21.500, "fused_profile": 1.423,
+           "hamming_am": 0.938, "am_matmul": 1.067}
 
 GENOME_LEN = 4_000_000
 NUM_SPECIES = 20
@@ -84,6 +109,14 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -119,14 +152,20 @@ def expect_equal(name: str, got, want) -> int:
 
 
 def encoder_ops(lengths, n: int, w: int) -> int:
-    """Bind XORs plus one counter update per bit of every valid gram."""
+    """Integer operations of the valid word-grams of these reads."""
     m = np.maximum(np.asarray(lengths, np.int64) - (n - 1), 0)
-    return int(m.sum()) * w * ((n - 1) + 32)
+    return int(m.sum()) * w * ENCODE_OPS_PER_WORD_GRAM
 
 
-def bound_ms(nbytes: int, ops: int, ops_per_s: float = OPS_PER_S
-             ) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+def bound_ms(nbytes: int, int_ops: int = 0, tensor_ops: int = 0,
+             tensor_rate: float = 0.0,
+             int_rate: float = 0.0) -> tuple[float, str]:
+    """The least time: the largest of the bytes over HBM bandwidth, the
+    integer operations over the integer rate and the tensor-core
+    operations over their rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(int_ops / int_rate if int_ops else 0.0,
+                tensor_ops / tensor_rate if tensor_ops else 0.0)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -207,6 +246,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = INT32_OPS_PER_SM_CLOCK * sms * clock
+    b1_rate = B1_MMA_PER_SM_CLOCK * B1_OPS_PER_MMA * sms * clock
     counters = {"hdc_encoder": hdc_encoder.hdc_encode,
                 "fused_profile": fused_profile.fused_profile,
                 "hamming_am": hamming_am.hamming_am,
@@ -222,7 +265,9 @@ def main() -> int:
         return {k: fn.launches for k, fn in counters.items()}
 
     # -- 1. setup --------------------------------------------------------
-    say(f"[setup] card: {card}")
+    say(f"[setup] card: {card} | {sms} SMs at {clock / 1e6:.0f} MHz: "
+        f"32-bit integer rate {int_rate / 1e12:.2f} T/s, b1 mma search "
+        f"rate {b1_rate / 1e12:.0f} TOP/s")
     say(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -242,6 +287,9 @@ def main() -> int:
     wins = rng.integers(0, 4, (256, 8192)).astype(np.int32)
     wlens = np.full(256, 8192, np.int32)
     wlens[-1], wlens[-2] = 5000, 8191          # short tail; m = 8176 even
+    plane_ms = [v for k in range(1, 14) for v in (2 ** k - 1, 2 ** k,
+                                                  2 ** k + 1) if v <= 8177]
+    wlens[:len(plane_ms)] = np.array(plane_ms) + (n - 1)
     t_w, l_w = (torch.from_numpy(wins).to(dev), torch.from_numpy(wlens).to(dev))
     enc = hdc_encoder.hdc_encode(t_w, l_w, imr, tie)
     enc_plain = hdc_encoder.hdc_encode_plain(t_w, l_w, imr, tie)
@@ -253,8 +301,9 @@ def main() -> int:
     errs["hdc_encoder"] = max(errs["hdc_encoder"], expect_equal(
         "hdc_encoder reads", hdc_encoder.hdc_encode(t_r, l_r, imr, tie),
         hdc_encoder.hdc_encode_plain(t_r, l_r, imr, tie)))
-    say("[parity] hdc_encoder == plain on 256 x 8192 windows and reads of "
-        "lengths 0/10/150/151/300 (bit-exact)")
+    say(f"[parity] hdc_encoder == plain on 256 x 8192 windows ({len(plane_ms)} "
+        f"with m at plane boundaries 1 .. 8193) and reads of lengths "
+        f"0/10/150/151/300 (bit-exact)")
 
     protos = torch.cat([enc, convert.words_to_tensor(rng.integers(
         0, 2 ** 32, (745, w), dtype=np.uint32), dev)]).contiguous()
@@ -262,16 +311,26 @@ def main() -> int:
     qtoks = np.stack([wins[i % 256, s:s + 151] for i, s in enumerate(starts)])
     qlens = np.full(253, 150, np.int32)
     qlens[:4] = [151, 0, 10, 15]               # even m, empty, short, m = 0
+    read_ms = [v for k in range(1, 8) for v in (2 ** k - 1, 2 ** k,
+                                                2 ** k + 1) if v <= 136]
+    qlens[4:4 + len(read_ms)] = np.array(read_ms) + (n - 1)
     t_q, l_q = torch.from_numpy(qtoks).to(dev), torch.from_numpy(qlens).to(dev)
-    agree = fused_profile.fused_profile(t_q, l_q, imr, tie, protos,
-                                        dim=space.dim)
     agree_plain = fused_profile.fused_profile_plain(t_q, l_q, imr, tie, protos,
                                                     dim=space.dim)
-    errs["fused_profile"] = expect_equal("fused_profile", agree, agree_plain)
+    for bb_p, cl_p in ((fused_profile.DEFAULT_BB,
+                        fused_profile.DEFAULT_CLUSTER), (32, 2), (16, 8)):
+        agree = fused_profile.fused_profile(t_q, l_q, imr, tie, protos,
+                                            dim=space.dim, bb=bb_p,
+                                            cluster=cl_p)
+        errs["fused_profile"] = max(errs["fused_profile"], expect_equal(
+            f"fused_profile bb={bb_p} cluster={cl_p}", agree, agree_plain))
     if int(agree.max()) <= space.threshold_bits:
         fail("fused_profile: no read reaches the threshold of its window")
-    say(f"[parity] fused_profile == plain on 253 reads x 1001 prototypes "
-        f"(bit-exact; max agreement {int(agree.max())} of {space.dim})")
+    say(f"[parity] fused_profile == plain on 253 reads ({len(read_ms)} with "
+        f"m at plane boundaries) x 1001 prototypes at bb/cluster "
+        f"{fused_profile.DEFAULT_BB}/{fused_profile.DEFAULT_CLUSTER}, 32/2 "
+        f"and 16/8 (bit-exact; max agreement {int(agree.max())} of "
+        f"{space.dim})")
 
     # The search kernels: the encoded windows plus random rows against the
     # same 1,001 prototypes, then a ragged W = 1,001 (a K tail for
@@ -344,11 +403,13 @@ def main() -> int:
     work = {
         "hdc_encoder": bound_ms(
             t_bw.numel() * 4 + l_bw.numel() * 4 + imr.numel() * 4 + w * 4
-            + t_bw.shape[0] * w * 4, encoder_ops(bl[:256], n, w)),
+            + t_bw.shape[0] * w * 4, encoder_ops(bl[:256], n, w),
+            int_rate=int_rate),
         "fused_profile": bound_ms(
             t_rd.numel() * 4 + b_rd * 4 + imr.numel() * 4 + w * 4
             + s * w * 4 + b_rd * s * 4,
-            encoder_ops(sample.lengths[:256], n, w) + 3 * b_rd * s * w),
+            encoder_ops(sample.lengths[:256], n, w), 2 * b_rd * s * space.dim,
+            tensor_rate=b1_rate, int_rate=int_rate),
     }
     rows = []
     sources = {"hdc_encoder": ("src/repro_torch/csrc/hdc_encoder.cu",
@@ -371,8 +432,9 @@ def main() -> int:
                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
         lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
-        say(f"[time] {name}: {ms:.3f} ms/launch (plain {plain_ms:.1f} ms, "
-            f"bound {b_ms:.3f} ms by {b_by}{lib}) | {card}")
+        say(f"[time] {name}: {ms:.3f} ms/launch (PR 12: "
+            f"{PR12_MS[name]:.3f} ms, PERF.md; plain {plain_ms:.1f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by}{lib}) | {card}")
         rows.append(row)
         return row
 
@@ -385,6 +447,7 @@ def main() -> int:
     say(f"[time] fused_profile split at B=256, L=150, S={s}: encode "
         f"{enc_ms:.3f} ms (S=1) + search {rows[1]['ms'] - enc_ms:.3f} ms")
     if sweep:
+        lib = fused_profile._lib()
         for bb in fused_profile.BATCH_TILES:
             for cl in fused_profile.CLUSTER_SIZES:
                 if fused_profile.smem_bytes(bb, cl, 150, n, alphabet, w) > \
@@ -393,8 +456,14 @@ def main() -> int:
                 ms = cuda_time_ms(lambda: fused_profile.fused_profile(
                     t_rd, l_rd, imr, tie, db.prototypes, dim=space.dim,
                     bb=bb, cluster=cl), reps=5)
+                plan = ops.fused_tile_plan(b_rd, s, w, bb=bb, cluster=cl,
+                                           read_len=150, sms=sms)
+                active = lib.fused_profile_max_active_clusters(bb, cl, 150,
+                                                               n, w)
                 say(f"[sweep] fused_profile bb={bb} cluster={cl}: "
-                    f"{ms:.3f} ms")
+                    f"{ms:.3f} ms | {plan['tiles']} tiles x {plan['splits']} "
+                    f"splits = {plan['tiles'] * plan['splits']} clusters, "
+                    f"{active} fit at once")
 
     # -- 3b. the unfused search paths at full width -----------------------
     search_launches = {}
@@ -438,7 +507,9 @@ def main() -> int:
     time_row("hamming_am",
              lambda: hamming_am.hamming_am(q_rd, protos_main, dim=dim),
              lambda: hamming_am.hamming_am_plain(q_rd, protos_main, dim=dim),
-             bound_ms((b_rd + s) * w * 4 + b_rd * s * 4, 3 * b_rd * s * w),
+             bound_ms((b_rd + s) * w * 4 + b_rd * s * 4,
+                      tensor_ops=2 * b_rd * s * space.dim,
+                      tensor_rate=b1_rate),
              search_launches)
     pm1_ms = cuda_time_ms(lambda: ops.to_pm1(protos_main), reps=3)
     q_pm, p_pm = ops.to_pm1(q_rd), ops.to_pm1(protos_main)
@@ -449,26 +520,42 @@ def main() -> int:
     qf, pf = q_pm.float(), p_pm.float()
     f32_ms = cuda_time_ms(lambda: torch.matmul(qf, pf.T), reps=3)
     del qf, pf
-    qi, pi = q_pm.to(torch.int8), p_pm.to(torch.int8)
+    dots = 2 * am_matmul.am_matmul(q_pm, p_pm, dim=k) - k  # exact +-1 dots
+    try:                               # exact: sums of +-1 below 2^24
+        bf16_mm = torch.mm(q_pm, p_pm.T, out_dtype=torch.float32)
+        if not torch.equal(bf16_mm.to(torch.int32), dots):
+            fail("torch.mm bf16 -> float32 on the +-1 operands disagrees")
+        bf16_ms = cuda_time_ms(lambda: torch.mm(
+            q_pm, p_pm.T, out_dtype=torch.float32), reps=10)
+        bf16_line = f"{bf16_ms:.3f} ms"
+    except (RuntimeError, TypeError) as e:   # the library call refused
+        bf16_ms = None
+        bf16_line = f"refused ({str(e).splitlines()[0][:120]})"
+    s8 = -(-s // 8) * 8                # _int_mm wants N a multiple of 8
+    qi = q_pm.to(torch.int8)
+    pi = torch.zeros((s8, k), dtype=torch.int8, device=dev)
+    pi[:s] = p_pm.to(torch.int8)
     try:
         int_mm = torch._int_mm(qi, pi.T)
-        if not torch.equal(int_mm, (2 * am_matmul.am_matmul(
-                q_pm, p_pm, dim=k) - k)):
+        if not torch.equal(int_mm[:, :s], dots):
             fail("torch._int_mm on the +-1 operands disagrees")
-        i8_ms = cuda_time_ms(lambda: torch._int_mm(qi, pi.T), reps=3)
+        i8_ms = cuda_time_ms(lambda: torch._int_mm(qi, pi.T), reps=10)
         i8_line = f"{i8_ms:.3f} ms"
     except RuntimeError as e:          # the library call refused the shape
         i8_line = f"refused ({str(e).splitlines()[0][:120]})"
-    del qi, pi
+    del qi, pi, dots
     say(f"[time] library on the same +-1 operands: torch.matmul float32 "
-        f"(TF32 off) {f32_ms:.3f} ms (the yardstick) | torch._int_mm int8 "
-        f"{i8_line} | {card}")
+        f"(TF32 off) {f32_ms:.3f} ms | torch.mm bf16 -> float32 "
+        f"{bf16_line} (the yardstick) | torch._int_mm int8, S padded to "
+        f"{s8}: {i8_line} (the search's tensor-core yardstick) | {card}")
     time_row("am_matmul",
              lambda: am_matmul.am_matmul(q_pm, p_pm, dim=dim),
              lambda: am_matmul.am_matmul_plain(q_pm, p_pm, dim=dim),
-             bound_ms((b_rd + s) * k * 2 + b_rd * s * 4, 2 * b_rd * s * k,
-                      TENSOR_BF16_FLOP_PER_S),
-             search_launches, library_ms=f32_ms)
+             bound_ms((b_rd + s) * k * 2 + b_rd * s * 4,
+                      tensor_ops=2 * b_rd * s * k,
+                      tensor_rate=TENSOR_BF16_FLOP_PER_S),
+             search_launches,
+             library_ms=bf16_ms if bf16_ms is not None else f32_ms)
     del q_pm, p_pm
     batch_ms = cuda_time_ms(lambda: ops.am_agreement(
         q_rd, protos_main, dim, "matmul"), reps=3)

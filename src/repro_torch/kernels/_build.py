@@ -56,6 +56,12 @@ def _flags() -> list[str]:
     return flags
 
 
+def nvcc_command(src: str | pathlib.Path, out: str | pathlib.Path,
+                 compiler: str | None = None) -> list[str]:
+    """The nvcc command line that builds ``src`` into the library ``out``."""
+    return [compiler or nvcc(), *_flags(), "-o", str(out), str(src)]
+
+
 def _lib_path(name: str, compiler: str) -> pathlib.Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.iterdir()):
@@ -82,7 +88,7 @@ def build_all(names=SOURCES) -> dict[str, ctypes.CDLL]:
             fd, tmp = tempfile.mkstemp(dir=out_dir, prefix=target.name,
                                        suffix=".tmp")
             os.close(fd)
-            cmd = [compiler, *_flags(), "-o", tmp, str(CSRC / f"{name}.cu")]
+            cmd = nvcc_command(CSRC / f"{name}.cu", tmp, compiler)
             jobs.append((name, target, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

@@ -79,28 +79,33 @@ def hdc_encode(tokens: torch.Tensor, lengths: torch.Tensor, im: torch.Tensor,
 def fused_tile_plan(b: int, s: int, w: int, *,
                     bb: int = _fused_profile.DEFAULT_BB,
                     cluster: int = _fused_profile.DEFAULT_CLUSTER,
-                    ngram: int = 16, alphabet: int = 4, read_len: int = 0
-                    ) -> dict[str, int]:
+                    ngram: int = 16, alphabet: int = 4, read_len: int = 0,
+                    sms: int = 132) -> dict[str, int]:
     """The launch :func:`fused_agreement` runs, re-derived for Hopper.
 
-    One cluster of ``cluster`` blocks per tile of ``bb`` reads; each block
-    holds the ``(bb, W)`` encoded tile, its 1/cluster slice of the rolled
-    item memory and the tile's tokens in shared memory (checked against
-    the 227 KB a block may use; ``read_len=0`` checks the part that does
-    not depend on the reads).  Each tile reads every prototype row once.
+    One cluster of ``cluster`` blocks per tile of ``bb`` reads and per
+    ``splits``-th of the prototypes, where ``splits`` fills the ``sms``
+    SMs (the kernel reads the SM count of the card it runs on).  Each
+    block holds the encoded tile (16 or 32 rows of W words padded to 32)
+    and, in turn, its encode scratch and its warps' prototype rings in
+    shared memory (checked against the 227 KB a block may use;
+    ``read_len=0`` checks the part that does not depend on the reads).
+    Each tile reads every prototype row once.
 
-    Returns ``bb``, ``cluster``, ``tiles`` (read tiles), ``blocks``,
-    ``w_pad`` (prototype row words, a multiple of 4), ``smem_bytes`` per
-    block and ``proto_bytes_per_call`` -- the prototype bytes the blocks
-    load per launch (``tiles * S * w_pad * 4``, mostly served by L2).
+    Returns ``bb``, ``cluster``, ``tiles`` (read tiles), ``splits``,
+    ``blocks``, ``w_pad`` (prototype row words, a multiple of 32),
+    ``smem_bytes`` per block and ``proto_bytes_per_call`` -- the
+    prototype bytes the blocks load per launch (``tiles * S * w_pad * 4``,
+    mostly served by L2).
     """
     smem = _fused_profile.check_tiles(bb, cluster, read_len, ngram, alphabet,
                                       w)
     tiles = -(-b // bb)
-    w_pad = -(-w // 4) * 4
-    return {"bb": bb, "cluster": cluster, "tiles": tiles,
-            "blocks": tiles * cluster, "w_pad": w_pad, "smem_bytes": smem,
-            "proto_bytes_per_call": tiles * s * w_pad * 4}
+    splits = max(1, sms // max(1, tiles * cluster))
+    w_pad = -(-w // _fused_profile.STEP_WORDS) * _fused_profile.STEP_WORDS
+    return {"bb": bb, "cluster": cluster, "tiles": tiles, "splits": splits,
+            "blocks": tiles * cluster * splits, "w_pad": w_pad,
+            "smem_bytes": smem, "proto_bytes_per_call": tiles * s * w_pad * 4}
 
 
 def fused_agreement(tokens: torch.Tensor, lengths: torch.Tensor,

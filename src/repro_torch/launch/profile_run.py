@@ -121,7 +121,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend-option", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="backend-specific option, repeatable (e.g. "
-                         "--backend cuda_fused --backend-option bb=4)")
+                         "--backend cuda_fused --backend-option bb=32)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
                          "the plain torch path on the host)")

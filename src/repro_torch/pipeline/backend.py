@@ -35,7 +35,7 @@ import torch
 from repro_torch.core import assoc_memory, encoder, item_memory
 from repro_torch.core.hd_space import HDSpace
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import hdc_encoder, ops
 from repro_torch.pipeline.config import ProfilerConfig
 from repro_torch.pipeline.options import OptionsSchema
 
@@ -178,9 +178,20 @@ class ReferencePackedBackend(ReferenceBackend):
 
 class _CudaKernelBackendBase(_BackendBase):
     """The CUDA encoder kernel + one standalone AM-search kernel (the
-    kernels' plain torch versions on CPU tensors)."""
+    kernels' plain torch versions on CPU tensors).
+
+    The encode kernels stage tokens as 2-bit symbols, so a space whose
+    alphabet exceeds 4 is refused here, on every device, rather than at
+    the first launch.
+    """
 
     formulation = "matmul"
+
+    def __init__(self, config: ProfilerConfig, *,
+                 device: str | torch.device | None = None):
+        hdc_encoder.check_shape(self.name, 0, config.space.ngram,
+                                config.space.alphabet_size)
+        super().__init__(config, device=device)
 
     def encode(self, tokens: torch.Tensor, lengths: torch.Tensor
                ) -> torch.Tensor:

@@ -13,12 +13,15 @@ kernel's plain torch version.
 Options (validated when the session is built, so a bad tiling is a
 :class:`ValueError` there and never a launch failure mid-profile):
 
-    bb       reads per cluster tile: 1, 2, 4, 8 or 16 (default 4), at
-             most the configured batch padded to a multiple of 8.
+    bb       reads per cluster tile: 16 or 32 (default 16), one or two
+             16-row tensor-core tiles of the search; bb = 32 halves the
+             AM bytes a read costs.  Any batch size works: the rows of a
+             tail tile past the batch are left idle.
     cluster  blocks per cluster sharing one encoded tile: 1, 2, 4 or 8
-             (default 8).  Each block holds the encoded tile and 1/cluster
-             of the rolled item memory in shared memory; the pair must fit
-             the 227 KB a block may use.
+             (default 2).  Each block holds the encoded tile, the pair
+             table of its 1/cluster of the words and its warps' prototype
+             rings in shared memory; the pair must fit the 227 KB a block
+             may use.
 """
 
 from __future__ import annotations
@@ -41,13 +44,15 @@ def _batch_tile(v) -> str | None:
         return "must be a positive int"
     if v not in _fused_profile.BATCH_TILES:
         return (f"must be a power of two up to "
-                f"{_fused_profile.BATCH_TILES[-1]}")
+                f"{_fused_profile.BATCH_TILES[-1]} and at least "
+                f"{_fused_profile.BATCH_TILES[0]} (one 16-row tensor-core "
+                f"tile)")
     return None
 
 
 FUSED_OPTIONS = OptionsSchema(backend="cuda_fused", options=(
     Option("bb", "int", default=_DEFAULTS["bb"], check=_batch_tile,
-           help="reads per cluster tile (power of two, <= 16)"),
+           help="reads per cluster tile (16 or 32)"),
     Option("cluster", "int", default=_DEFAULTS["cluster"],
            choices=_fused_profile.CLUSTER_SIZES,
            help="blocks per cluster sharing one encoded read tile"),
@@ -66,12 +71,6 @@ class CudaFusedBackend(_CudaKernelBackendBase):
         super().__init__(config, device=device)
         opts = config.options
         self.tiles = {k: opts.get(k, v) for k, v in _DEFAULTS.items()}
-        padded_batch = 8 * ((config.batch_size + 7) // 8)
-        if self.tiles["bb"] > padded_batch:
-            raise ValueError(
-                f"cuda_fused option 'bb'={self.tiles['bb']} exceeds the "
-                f"padded batch ({config.batch_size} reads pad to "
-                f"{padded_batch}); lower bb or raise batch_size")
         ops.fused_tile_plan(
             config.batch_size, 0, self.space.num_words,
             ngram=self.space.ngram, alphabet=self.space.alphabet_size,

@@ -110,14 +110,40 @@ def test_encoder_wrapper_counts_only_kernel_launches():
     assert hdc_encoder.hdc_encode.launches == before
 
 
+def _trap_lengths(length, n):
+    """Lengths whose gram counts m sit at the bit-sliced counters' plane
+    boundaries (2^k - 1, 2^k, 2^k + 1), m = 0, even m, and m = g."""
+    g = max(length - n + 1, 0)
+    ms = {0, 1, 2, g, max(g - 1, 0)} | {
+        v for k in range(1, 15) for v in (2 ** k - 1, 2 ** k, 2 ** k + 1)}
+    ms = sorted(v for v in ms if v <= g)
+    return np.array([v + n - 1 if v else 0 for v in ms], np.int32)
+
+
+#: dim, n, read length: W = 33, 18 and 40 (not multiples of a lane's 4
+#: words or a warp's 128), 150-token reads at full width, windows of 8,192
+#: tokens (14 planes) and g = 255 / 256 (the 8 / 14 plane boundary).
+ENCODER_TRAP_CASES = [(1056, 5, 300), (576, 3, 40), (1280, 8, 100),
+                      (40960, 16, 150), (40960, 16, 8192), (512, 4, 258),
+                      (512, 4, 259)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,n,b,length", ENCODER_CASES + [
-    (40960, 16, 5, 300), (40960, 16, 3, 8192)])
+    (40960, 16, 5, 300), (40960, 16, 3, 8192)] + [
+    (dim, n, None, length) for dim, n, length in ENCODER_TRAP_CASES])
 def test_encoder_kernel_matches_plain(cuda, dim, n, b, length):
     ts, tim, ttie = _torch_state(dim, n)
-    toks, lens = _reads(b, length, n, seed=dim + n)
-    want = ops.hdc_encode(torch.from_numpy(toks), torch.from_numpy(lens),
-                          tim, ttie, ts)
+    if b is None:
+        lens = _trap_lengths(length, n)
+        toks = np.random.default_rng(length).integers(
+            0, 4, (len(lens), length)).astype(np.int32)
+    else:
+        toks, lens = _reads(b, length, n, seed=dim + n)
+    # the plain version on the card: the same function as on the CPU
+    want = hdc_encoder.hdc_encode_plain(
+        torch.from_numpy(toks).to(cuda), torch.from_numpy(lens).to(cuda),
+        item_memory.rolled(tim, n).to(cuda), ttie.to(cuda)).cpu()
     before = hdc_encoder.hdc_encode.launches
     got = ops.hdc_encode(torch.from_numpy(toks).to(cuda),
                          torch.from_numpy(lens).to(cuda), tim.to(cuda),
@@ -163,14 +189,27 @@ def test_fused_plain_matches_repro(dim, n, b, length, s, tiles):
 
 
 def test_fused_tile_plan_checks_shared_memory():
-    # main-path tiling at full width: the encoded tile (40 KB), a quarter
-    # of the rolled item memory (80 KB) and 150-token reads
-    plan = ops.fused_tile_plan(256, 9766, 1280, bb=8, cluster=4, ngram=16,
+    # full width: a 16-row encoded tile (80 KB) and its row popcounts, then
+    # the larger of the encode scratch and 16 warps' 4-stage prototype
+    # rings (16 x 4 x 16 x 32 words = 128 KB)
+    plan = ops.fused_tile_plan(256, 9766, 1280, bb=16, cluster=4, ngram=16,
                                alphabet=4, read_len=150)
-    assert plan["smem_bytes"] == 8 * 1280 * 4 + 16 * 4 * 320 * 4 + 8 * 150
-    assert plan["tiles"] == 32 and plan["blocks"] == 128
+    assert plan["smem_bytes"] == (16 * 1280 + 16 + 16 * 4 * 16 * 32) * 4
+    assert plan["tiles"] == 16 and plan["splits"] == 2
+    assert plan["blocks"] == 128
+    assert plan["w_pad"] == 1280
+    assert plan["proto_bytes_per_call"] == 16 * 9766 * 1280 * 4
+    # 32-row tiles: 2-stage rings; with cluster 1 the encode scratch (the
+    # pair table of all 1,280 words) no longer fits beside the tile
+    plan = ops.fused_tile_plan(256, 9766, 1280, bb=32, cluster=8, ngram=16,
+                               read_len=150)
+    assert plan["smem_bytes"] == (32 * 1280 + 32 + 16 * 2 * 16 * 32) * 4
+    assert plan["splits"] == 2 and plan["blocks"] == 128
     with pytest.raises(ValueError, match="shared memory"):
-        ops.fused_tile_plan(256, 10, 1280, bb=8, cluster=1, ngram=16)
+        ops.fused_tile_plan(256, 10, 1280, bb=32, cluster=1, ngram=16,
+                            read_len=150)
+    with pytest.raises(ValueError, match="2-bit"):
+        ops.fused_tile_plan(256, 10, 16, alphabet=5)
     with pytest.raises(ValueError, match="bb must be one of"):
         ops.fused_tile_plan(256, 10, 16, bb=3)
     with pytest.raises(ValueError, match="cluster must be one of"):
@@ -179,19 +218,31 @@ def test_fused_tile_plan_checks_shared_memory():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,n,b,length,s,tiles", FUSED_CASES + [
-    (40960, 16, 37, 151, 1001, {})])
-@pytest.mark.parametrize("bb,cluster", [(4, 8), (8, 4), (1, 1), (16, 8),
-                                        (2, 2)])
+    (40960, 16, 37, 151, 1001, {}),
+    (40960, 16, 253, 150, 1001, {}),              # B, S at no tile multiple
+    (1056, 5, None, 300, 13, {}),                 # plane-boundary m, W = 33
+    (576, 3, None, 40, 130, {})])                 # W = 18
+@pytest.mark.parametrize("bb,cluster", [(16, 1), (16, 2), (16, 4), (16, 8),
+                                        (32, 4), (32, 8), (32, 2)])
 def test_fused_kernel_matches_plain(cuda, dim, n, b, length, s, tiles, bb,
                                     cluster):
     if fused_profile.smem_bytes(bb, cluster, length, n, 4,
                                 dim // 32) > fused_profile.MAX_SMEM_BYTES:
         pytest.skip("tiling does not fit shared memory at this width")
     ts, tim, ttie = _torch_state(dim, n)
-    toks, lens = _reads(b, length, n, seed=s)
+    if b is None:
+        lens = _trap_lengths(length, n)
+        toks = np.random.default_rng(length).integers(
+            0, 4, (len(lens), length)).astype(np.int32)
+        b = len(lens)
+    else:
+        toks, lens = _reads(b, length, n, seed=s)
     protos = _t(_protos(dim, s, seed=b))
-    want = ops.fused_agreement(torch.from_numpy(toks), torch.from_numpy(lens),
-                               tim, ttie, protos, ts)
+    # the plain version on the card: the same function as on the CPU
+    want = fused_profile.fused_profile_plain(
+        torch.from_numpy(toks).to(cuda), torch.from_numpy(lens).to(cuda),
+        item_memory.rolled(tim, n).to(cuda), ttie.to(cuda), protos.to(cuda),
+        dim=dim).cpu()
     before = fused_profile.fused_profile.launches
     got = ops.fused_agreement(
         torch.from_numpy(toks).to(cuda), torch.from_numpy(lens).to(cuda),
@@ -204,11 +255,15 @@ def test_fused_kernel_matches_plain(cuda, dim, n, b, length, s, tiles, bb,
 
 @pytest.mark.cuda
 def test_shared_memory_formula_matches_the_source(cuda):
-    """The fused tiling is validated on the host before any build, so
-    its shared-memory formula is kept in Python too; it must agree."""
+    """The tilings are validated on the host before any build, so the
+    shared-memory formulas are kept in Python too; they must agree."""
     fus = fused_profile._lib()
-    for length, n in ((150, 16), (8192, 16), (7, 3)):
-        for bb, cluster, w in ((8, 4, 1280), (4, 8, 1280), (1, 1, 33),
-                               (16, 8, 16)):
+    enc = hdc_encoder._lib()
+    for length, n in ((150, 16), (8192, 16), (7, 3), (300, 5)):
+        for bb, cluster, w in ((16, 4, 1280), (16, 8, 1280), (16, 1, 33),
+                               (16, 8, 16), (32, 8, 1280), (32, 2, 1280),
+                               (16, 1, 1280), (32, 1, 18)):
             assert fus.fused_profile_smem_bytes(bb, cluster, length, n, 4, w) \
                 == fused_profile.smem_bytes(bb, cluster, length, n, 4, w)
+        assert enc.hdc_encode_smem_bytes(length, n, 4) \
+            == hdc_encoder.smem_bytes(length, n)

@@ -259,12 +259,12 @@ def test_species_scores_drop_padding_like_repro():
 @pytest.mark.parametrize("options,match", [
     ({"bb": 3}, "power of two"),
     ({"bb": 0}, "positive int"),
-    ({"bb": 32}, "power of two up to 16"),
+    ({"bb": 64}, "power of two up to 32"),
     ({"bb": True}, "must be an integer"),
     ({"cluster": 3}, "must be one of"),
     ({"cluster": "four"}, "must be an integer"),
     ({"bs": 128}, "unknown option"),
-    ({"bb": 16}, "padded batch"),          # batch_size=7 pads to 8
+    ({"bb": 8}, "at least 16"),            # below one tensor-core tile
 ])
 def test_cuda_fused_tile_validation_is_friendly(options, match):
     with pytest.raises(ValueError, match=match):
@@ -272,11 +272,40 @@ def test_cuda_fused_tile_validation_is_friendly(options, match):
                                  backend_options=options), device="cpu")
 
 
+@pytest.mark.parametrize("bb", [16, 32])
+def test_cuda_fused_takes_batches_smaller_than_a_tile(jax_runs, community,
+                                                      bb):
+    """A batch of 7 reads fills part of one tile; the rows past it are
+    left idle, and the report is still ``repro``'s."""
+    genomes, toks, lens = community
+    s = ProfilingSession(_config("cuda_fused", batch_size=7,
+                                 backend_options={"bb": bb}), device="cpu")
+    s.build_refdb(genomes)
+    assert s.profile(ArraySource(toks, lens)).to_dict() == \
+        jax_runs["reference"][1]
+
+
+@pytest.mark.parametrize("backend", ["cuda_matmul", "cuda_packed",
+                                     "cuda_fused"])
+def test_cuda_backends_refuse_alphabets_above_four(backend):
+    """The encode kernels stage 2-bit symbols: a session over a larger
+    alphabet is refused when it is built, on every device."""
+    space = HDSpace(**SPACE, alphabet_size=5)
+    with pytest.raises(ValueError, match="alphabets of 1 to 4"):
+        ProfilingSession(ProfilerConfig(space=space, backend=backend),
+                         device="cpu")
+    ProfilingSession(ProfilerConfig(space=HDSpace(**SPACE, alphabet_size=4),
+                                    backend=backend), device="cpu")
+    ProfilingSession(ProfilerConfig(space=space, backend="reference"),
+                     device="cpu")
+
+
 def test_cuda_fused_shared_memory_limit_is_checked_at_construction():
     space = dataclasses.replace(HDSpace(), z_threshold=4.0)
     with pytest.raises(ValueError, match="shared memory"):
         ProfilingSession(ProfilerConfig(space=space, backend="cuda_fused",
-                                        backend_options={"cluster": 1}),
+                                        backend_options={"bb": 32,
+                                                         "cluster": 1}),
                          device="cpu")
     ProfilingSession(ProfilerConfig(space=space, backend="cuda_fused"),
                      device="cpu")
