@@ -18,28 +18,35 @@ no result line):
              of lengths 0, 10, 150, 151 and 300; the fused kernel on 253
              reads (a partial tail tile, even and zero gram counts, m at
              plane boundaries) against 1,001 prototypes, at the default
-             tiling, at bb 32 / cluster 2 and at bb 16 / cluster 8; both
-             search kernels
-             (``hamming_am``, ``am_matmul``) on 253 queries against the
-             same 1,001 prototypes, and at a ragged W = 1,001, each with a
-             query equal to a prototype and one equal to a complement.
+             tiling, at bb 32 / cluster 2 and at bb 16 / cluster 8; the
+             search kernels (``hamming_am``, ``am_matmul_packed``, the bf16
+             ``am_matmul``) on 253 queries against the same 1,001
+             prototypes, and at a ragged W = 1,001, each with a query equal
+             to a prototype and one equal to a complement, all equal to
+             each other; and at dim != 32 W against their plain versions.
 3. main path ``ProfilingSession(..., backend="cuda_fused")`` builds the
              RefDB of a 20 species x 4,000,000 bp synthetic community
              (~9.8k prototypes, ~50 MB) and profiles 32,768 reads of 150 bp,
              with every kernel launch counter set to 0 just before and read
-             just after; then each kernel is timed and held against its
+             just after, then times ``WARM_RUNS`` more profiles (their median
+             is the end-to-end figure; the first run carries first-call
+             costs); then each kernel is timed and held against its
              plain version at the shapes that run gave it, beside its
-             bound (and, in the text line, its PR 12 time from PERF.md).
+             bound (and, in the text line, its time before its current design, from PERF.md).
    search    the same reads through ``cuda_packed`` and ``cuda_matmul``
              sessions against phase 3's RefDB, each with the counters set
              to 0 just before and read just after: the encoder and the
              backend's search kernel must launch, the fused kernel must
-             not, and each report must equal phase 3's.  Then
-             ``cuda_fused.agreement`` (``am_matmul``) on 256 reads against
-             ``classify_batch``, and both search kernels timed at the main
-             path's shapes beside ``to_pm1`` and the library calls
-             (float32 and bf16 ``torch.mm``, ``torch._int_mm`` on int8
-             +-1 operands with S padded to a multiple of 8).
+             not, and each report must equal phase 3's; ``cuda_matmul``
+             must call ``ops.to_pm1`` no time (the rise of
+             ``max_memory_allocated`` during each profile is printed); then
+             ``WARM_RUNS`` more profiles each, as in phase 3.
+             Then ``cuda_fused.agreement`` (``am_matmul_packed``) on 256
+             reads against ``classify_batch``, and the search kernels
+             timed at the main path's shapes beside ``to_pm1`` and the
+             library calls on the pre-expanded +-1 operands (float32 and
+             bf16 ``torch.mm``, ``torch._int_mm`` on int8 with S padded
+             to a multiple of 8).
 4. report    a 4 species x 200 kbp community, 2,048 reads: the cuda_fused,
              cuda_packed and cuda_matmul reports and prototypes equal the
              torch ``reference`` backend's on the card.
@@ -55,6 +62,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -64,13 +72,16 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 #: Peak rates for the bound.  NVIDIA H100 SXM data sheet (at 700 W): HBM3
-#: bandwidth and 989 TFLOP/s dense bf16 (am_matmul's +-1 products).  CUDA
+#: bandwidth, 989 TFLOP/s dense bf16 (the bf16 am_matmul entry's +-1
+#: products) and 1,979 TOP/s dense int8 (the packed am_matmul entry's: +-1
+#: products are exact in int8, so bf16's rate is not the least time).  CUDA
 #: C++ Programming Guide, arithmetic-instruction throughput table, compute
 #: capability 9.0: 32-bit integer add and logic at 64 a clock per SM, for
 #: the encode's integer work.  Rates given a clock are taken at the SM
 #: clock nvidia-smi reports (clocks.max.sm) times the SM count.
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_BF16_FLOP_PER_S = 989e12
+TENSOR_INT8_OPS_PER_S = 1979e12
 INT32_OPS_PER_SM_CLOCK = 64
 #: The B x S x D bit agreements of fused_profile and hamming_am, counted
 #: as 2 B S D operations (an AND and an add a bit), are priced at the
@@ -85,14 +96,18 @@ B1_OPS_PER_MMA = 2 * 16 * 8 * 256
 #: one XOR of the rolling bind (a pair-table word) and one carry-save full
 #: adder (two LOP3) of the bit-sliced counting.
 ENCODE_OPS_PER_WORD_GRAM = 3
-#: Each kernel's PR 12 time a launch (chip_smoke, NVIDIA H100 80GB HBM3,
-#: 700.00 W; PERF.md), printed in the [time] lines beside this run's.
-PR12_MS = {"hdc_encoder": 21.500, "fused_profile": 1.423,
-           "hamming_am": 0.938, "am_matmul": 1.067}
+#: Each kernel's time a launch before its current design (chip_smoke,
+#: NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table), printed in the
+#: [time] lines beside this run's.
+PRIOR_MS = {"hdc_encoder": 1.201, "fused_profile": 0.240,
+           "hamming_am": 0.934, "am_matmul": 1.060}
 
 GENOME_LEN = 4_000_000
 NUM_SPECIES = 20
 NUM_READS = 32_768
+#: ``profile`` runs timed after each backend's first (cold) one, which
+#: carries first-call costs; their median is the end-to-end figure.
+WARM_RUNS = 5
 
 
 def say(*parts) -> None:
@@ -136,6 +151,30 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def warm_profile(sess, sample, db, want: dict) -> tuple[float, list[float]]:
+    """Median and list of ``WARM_RUNS`` back-to-back ``profile`` seconds
+    (host clock, after ``synchronize``); each report must equal ``want``."""
+    import torch
+
+    secs = []
+    for _ in range(WARM_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sess.profile(sample, refdb=db)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if rep.to_dict() != want:
+            fail(f"a warm {sess.config.backend} profile differs from the "
+                 f"first")
+    return statistics.median(secs), secs
+
+
+def warm_line(med: float, secs: list[float]) -> str:
+    return (f"warm median {med:.3f} s of {len(secs)} "
+            f"({' '.join(f'{x:.3f}' for x in secs)}) | "
+            f"{NUM_READS / med:.0f} reads/s")
+
+
 def max_abs_err(got, want) -> int:
     diff = (got.to("cpu").long() - want.to("cpu").long()).abs()
     return int(diff.max()) if diff.numel() else 0
@@ -173,27 +212,37 @@ def bound_ms(nbytes: int, int_ops: int = 0, tensor_ops: int = 0,
 
 
 def search_parity(name, q, p, dim, errs) -> None:
-    """Both search kernels against their plain versions and each other on
-    packed ``q``/``p`` whose row 0 equals prototype 0 and row 1 the
-    complement of the last prototype."""
+    """The search kernels against their plain versions and, at
+    dim = 32 W, against each other on packed ``q``/``p`` whose row 0
+    equals prototype 0 and row 1 the complement of the last prototype."""
     from repro_torch.kernels import am_matmul, hamming_am, ops
 
     got_h = hamming_am.hamming_am(q, p, dim=dim)
     errs["hamming_am"] = max(errs["hamming_am"], expect_equal(
         f"hamming_am {name}", got_h, hamming_am.hamming_am_plain(q, p,
                                                                  dim=dim)))
+    got_k = am_matmul.am_matmul_packed(q, p, dim=dim)
+    errs["am_matmul_packed"] = max(errs["am_matmul_packed"], expect_equal(
+        f"am_matmul_packed {name}", got_k,
+        am_matmul.am_matmul_packed_plain(q, p, dim=dim)))
     q_pm, p_pm = ops.to_pm1(q), ops.to_pm1(p)
     got_m = am_matmul.am_matmul(q_pm, p_pm, dim=dim)
     errs["am_matmul"] = max(errs["am_matmul"], expect_equal(
         f"am_matmul {name}", got_m, am_matmul.am_matmul_plain(q_pm, p_pm,
                                                               dim=dim)))
-    expect_equal(f"am_matmul vs hamming_am {name}", got_m, got_h)
+    expect_equal(f"am_matmul_packed vs am_matmul {name}", got_k, got_m)
+    if dim != 32 * q.shape[1]:
+        say(f"[parity] hamming_am, am_matmul_packed and am_matmul == plain "
+            f"on {q.shape[0]} queries x {p.shape[0]} prototypes, W = "
+            f"{q.shape[1]}, dim = {dim} (bit-exact)")
+        return
+    expect_equal(f"am_matmul_packed vs hamming_am {name}", got_k, got_h)
     corners = (int(got_h[0, 0]), int(got_h[1, -1]))
     if corners != (dim, 0):
         fail(f"search {name}: equal / complement rows give {corners}, "
              f"want ({dim}, 0)")
-    say(f"[parity] hamming_am == am_matmul == plain on {q.shape[0]} "
-        f"queries x {p.shape[0]} prototypes, W = {q.shape[1]} "
+    say(f"[parity] hamming_am == am_matmul_packed == am_matmul == plain on "
+        f"{q.shape[0]} queries x {p.shape[0]} prototypes, W = {q.shape[1]} "
         f"(bit-exact; equal row {corners[0]}, complement row {corners[1]})")
 
 
@@ -239,8 +288,9 @@ def main() -> int:
     from repro_torch.core.hd_space import HDSpace
     from repro_torch.eval import score_profile
     from repro_torch.genomics import synth
-    from repro_torch.kernels import (_build, am_matmul, fused_profile,
-                                     hamming_am, hdc_encoder, ops)
+    from repro_torch.kernels import (_build, _search, am_matmul,
+                                     fused_profile, hamming_am, hdc_encoder,
+                                     ops)
     from repro_torch.pipeline import (ProfilerConfig, ProfilingSession,
                                       SyntheticSource)
 
@@ -253,6 +303,7 @@ def main() -> int:
     counters = {"hdc_encoder": hdc_encoder.hdc_encode,
                 "fused_profile": fused_profile.fused_profile,
                 "hamming_am": hamming_am.hamming_am,
+                "am_matmul_packed": am_matmul.am_matmul_packed,
                 "am_matmul": am_matmul.am_matmul}
 
     def zero_counts() -> None:
@@ -333,8 +384,9 @@ def main() -> int:
         f"{space.dim})")
 
     # The search kernels: the encoded windows plus random rows against the
-    # same 1,001 prototypes, then a ragged W = 1,001 (a K tail for
-    # am_matmul's 64-wide tiles, a word tail for hamming_am's 32).
+    # same 1,001 prototypes, then a ragged W = 1,001 (a word tail in the
+    # last 32-word step, rows not 16-byte aligned; a K tail for the bf16
+    # entry's 64-wide tiles), then that W at an odd dim below 32 W.
     q_search = with_corner_rows(torch.cat([enc[:200], convert.words_to_tensor(
         rng.integers(0, 2 ** 32, (53, w), dtype=np.uint32), dev)]), protos)
     search_parity("D=40960", q_search.contiguous(), protos, space.dim, errs)
@@ -343,6 +395,8 @@ def main() -> int:
     q_rag = with_corner_rows(convert.words_to_tensor(rng.integers(
         0, 2 ** 32, (253, 1001), dtype=np.uint32), dev), p_rag)
     search_parity("ragged W", q_rag.contiguous(), p_rag, 32 * 1001, errs)
+    search_parity("dim != 32 W", q_rag.contiguous(), p_rag, 32 * 1001 - 7,
+                  errs)
 
     # -- 3. main path at full width --------------------------------------
     config = ProfilerConfig(space=space, window=8192, batch_size=256,
@@ -379,6 +433,8 @@ def main() -> int:
             or not np.isfinite(report.abundance).all():
         fail("main path report is empty or not finite")
     main_report = report.to_dict()
+    med, secs = warm_profile(session, sample, db, main_report)
+    say(f"[main] cuda_fused profile {warm_line(med, secs)} | {card}")
 
     # Kernel times and parity at the shapes the main path gave them:
     # a full 256-window build batch and a 256-read query batch.
@@ -418,6 +474,8 @@ def main() -> int:
                                  "src/repro/kernels/fused_profile.py:148"),
                "hamming_am": ("src/repro_torch/csrc/hamming_am.cu",
                               "src/repro/kernels/hamming_am.py:24"),
+               "am_matmul_packed": ("src/repro_torch/csrc/am_matmul.cu",
+                                    "src/repro/kernels/am_matmul.py:31"),
                "am_matmul": ("src/repro_torch/csrc/am_matmul.cu",
                              "src/repro/kernels/am_matmul.py:31")}
 
@@ -432,9 +490,11 @@ def main() -> int:
                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
         lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
-        say(f"[time] {name}: {ms:.3f} ms/launch (PR 12: "
-            f"{PR12_MS[name]:.3f} ms, PERF.md; plain {plain_ms:.1f} ms, "
-            f"bound {b_ms:.4f} ms by {b_by}{lib}) | {card}")
+        before = (f"before: {PRIOR_MS[name]:.3f} ms, PERF.md"
+                  if name in PRIOR_MS else "a new entry")
+        say(f"[time] {name}: {ms:.3f} ms/launch ({before}; plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by}{lib}) | "
+            f"{card}")
         rows.append(row)
         return row
 
@@ -466,26 +526,48 @@ def main() -> int:
                     f"{active} fit at once")
 
     # -- 3b. the unfused search paths at full width -----------------------
-    search_launches = {}
+    pm1_calls = [0]
+    real_to_pm1 = ops.to_pm1
+
+    def counted_to_pm1(packed):
+        pm1_calls[0] += 1
+        return real_to_pm1(packed)
+
+    search_runs = {}
     for backend, kernel in (("cuda_packed", "hamming_am"),
-                            ("cuda_matmul", "am_matmul")):
+                            ("cuda_matmul", "am_matmul_packed")):
         sess = ProfilingSession(ProfilerConfig(
             space=space, window=8192, batch_size=256, backend=backend))
         zero_counts()
-        t0 = time.perf_counter()
-        rep = sess.profile(sample, refdb=db)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        pm1_calls[0] = 0
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        ops.to_pm1 = counted_to_pm1
+        try:
+            t0 = time.perf_counter()
+            rep = sess.profile(sample, refdb=db)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            ops.to_pm1 = real_to_pm1
+        rise = torch.cuda.max_memory_allocated() - mem0
         runs = read_counts()
-        search_launches[kernel] = runs[kernel]
+        search_runs[backend] = runs
         say(f"[search] {backend}: profile {secs:.3f} s | "
-            f"{NUM_READS / secs:.0f} reads/s | launches {json.dumps(runs)}")
+            f"{NUM_READS / secs:.0f} reads/s | launches {json.dumps(runs)} | "
+            f"to_pm1 calls {pm1_calls[0]} | max_memory_allocated rise "
+            f"{rise / 1e6:.1f} MB")
         if runs["hdc_encoder"] < 1 or runs[kernel] < 1 \
-                or runs["fused_profile"] != 0:
+                or runs["fused_profile"] != 0 or runs["am_matmul"] != 0:
             fail(f"{backend} path did not run encoder + {kernel} alone: "
                  f"{runs}")
+        if pm1_calls[0]:
+            fail(f"{backend} profile expanded to +-1 with ops.to_pm1 "
+                 f"{pm1_calls[0]} times")
         if rep.to_dict() != main_report:
             fail(f"{backend} report differs from cuda_fused's")
+        med, secs = warm_profile(sess, sample, db, main_report)
+        say(f"[search] {backend} profile {warm_line(med, secs)} | {card}")
     say("[search] cuda_packed and cuda_matmul reports == cuda_fused's "
         f"({NUM_READS} reads, {db.num_prototypes} prototypes)")
 
@@ -493,29 +575,35 @@ def main() -> int:
     res = session.classify_queries(session.encode_reads(t_rd, l_rd), db)
     runs = read_counts()
     fused_res = session.classify_batch(t_rd, l_rd, refdb=db).classification
-    if runs["am_matmul"] < 1:
-        fail(f"cuda_fused.agreement did not launch am_matmul: {runs}")
+    if runs["am_matmul_packed"] < 1:
+        fail(f"cuda_fused.agreement did not launch am_matmul_packed: {runs}")
     if not (torch.equal(res.hits, fused_res.hits)
             and torch.equal(res.category, fused_res.category)):
         fail("cuda_fused.agreement hits differ from classify_batch's")
-    say(f"[search] cuda_fused.agreement (am_matmul) == classify_batch on "
-        f"{b_rd} reads | launches {json.dumps(runs)}")
+    say(f"[search] cuda_fused.agreement (am_matmul_packed) == classify_batch "
+        f"on {b_rd} reads | launches {json.dumps(runs)}")
 
     q_rd = hdc_encoder.hdc_encode(t_rd, l_rd, imr, tie)
     protos_main = db.prototypes
     dim = space.dim
-    time_row("hamming_am",
-             lambda: hamming_am.hamming_am(q_rd, protos_main, dim=dim),
-             lambda: hamming_am.hamming_am_plain(q_rd, protos_main, dim=dim),
-             bound_ms((b_rd + s) * w * 4 + b_rd * s * 4,
-                      tensor_ops=2 * b_rd * s * space.dim,
-                      tensor_rate=b1_rate),
-             search_launches)
+    slab = hamming_am.slab_protos(b_rd, s)
+    if slab <= 0:
+        fail(f"search slab: hamming_am_slab_protos returned {slab}")
+    slabs, rows_b = -(-s // slab), _search.BLOCK_B
+    say(f"[time] search tiling (hamming_am, am_matmul_packed) at B={b_rd}, "
+        f"S={s}: {rows_b} reads x {slab} prototypes a block, "
+        f"{slabs * -(-b_rd // rows_b)} blocks on {sms} SMs; a launch reads "
+        f"the AM ({s * w * 4 / 1e6:.1f} MB) once and the packed reads "
+        f"{slabs * b_rd * w * 4 / 1e6:.1f} MB (once a block, mostly L2)")
+
+    # Library yardsticks on the pre-expanded +-1 operands (they do not pay
+    # for the expansion; no path calls them).
     pm1_ms = cuda_time_ms(lambda: ops.to_pm1(protos_main), reps=3)
     q_pm, p_pm = ops.to_pm1(q_rd), ops.to_pm1(protos_main)
     k = q_pm.shape[1]
     say(f"[time] to_pm1 of the AM ({s} x {w} words -> {s} x {k} bf16, "
-        f"{p_pm.numel() * 2 / 1e6:.1f} MB): {pm1_ms:.3f} ms | {card}")
+        f"{p_pm.numel() * 2 / 1e6:.1f} MB; off every path): {pm1_ms:.3f} ms "
+        f"| {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     qf, pf = q_pm.float(), p_pm.float()
     f32_ms = cuda_time_ms(lambda: torch.matmul(qf, pf.T), reps=3)
@@ -542,25 +630,46 @@ def main() -> int:
         i8_ms = cuda_time_ms(lambda: torch._int_mm(qi, pi.T), reps=10)
         i8_line = f"{i8_ms:.3f} ms"
     except RuntimeError as e:          # the library call refused the shape
+        i8_ms = None
         i8_line = f"refused ({str(e).splitlines()[0][:120]})"
     del qi, pi, dots
-    say(f"[time] library on the same +-1 operands: torch.matmul float32 "
-        f"(TF32 off) {f32_ms:.3f} ms | torch.mm bf16 -> float32 "
-        f"{bf16_line} (the yardstick) | torch._int_mm int8, S padded to "
-        f"{s8}: {i8_line} (the search's tensor-core yardstick) | {card}")
+    say(f"[time] library on the pre-expanded +-1 operands: torch.matmul "
+        f"float32 (TF32 off) {f32_ms:.3f} ms | torch.mm bf16 -> float32 "
+        f"{bf16_line} (the bf16 entry's yardstick) | torch._int_mm int8, S "
+        f"padded to {s8}: {i8_line} (the yardstick of hamming_am and "
+        f"am_matmul_packed) | {card}")
+
+    search_bound = bound_ms((b_rd + s) * w * 4 + b_rd * s * 4,
+                            tensor_ops=2 * b_rd * s * space.dim,
+                            tensor_rate=b1_rate)
+    time_row("hamming_am",
+             lambda: hamming_am.hamming_am(q_rd, protos_main, dim=dim),
+             lambda: hamming_am.hamming_am_plain(q_rd, protos_main, dim=dim),
+             search_bound, search_runs["cuda_packed"], library_ms=i8_ms)
+    packed_bound = bound_ms((b_rd + s) * w * 4 + b_rd * s * 4,
+                            tensor_ops=2 * b_rd * s * space.dim,
+                            tensor_rate=TENSOR_INT8_OPS_PER_S)
+    time_row("am_matmul_packed",
+             lambda: am_matmul.am_matmul_packed(q_rd, protos_main, dim=dim),
+             lambda: am_matmul.am_matmul_packed_plain(q_rd, protos_main,
+                                                      dim=dim),
+             packed_bound, search_runs["cuda_matmul"], library_ms=i8_ms)
+    say(f"[time] am_matmul_packed bound {packed_bound[0]:.4f} ms (2 B S D at "
+        f"the 1,979 TOP/s int8 peak); the same function in hamming_am's b1 "
+        f"formulation: {search_bound[0]:.4f} ms")
     time_row("am_matmul",
              lambda: am_matmul.am_matmul(q_pm, p_pm, dim=dim),
              lambda: am_matmul.am_matmul_plain(q_pm, p_pm, dim=dim),
              bound_ms((b_rd + s) * k * 2 + b_rd * s * 4,
                       tensor_ops=2 * b_rd * s * k,
                       tensor_rate=TENSOR_BF16_FLOP_PER_S),
-             search_launches,
+             search_runs["cuda_matmul"],     # 0: no path calls the bf16 entry
              library_ms=bf16_ms if bf16_ms is not None else f32_ms)
     del q_pm, p_pm
     batch_ms = cuda_time_ms(lambda: ops.am_agreement(
-        q_rd, protos_main, dim, "matmul"), reps=3)
-    say(f"[time] one cuda_matmul search step (to_pm1 of queries and AM + "
-        f"am_matmul) at B={b_rd}, S={s}: {batch_ms:.3f} ms | {card}")
+        q_rd, protos_main, dim, "matmul"), reps=10)
+    say(f"[time] one cuda_matmul search step (am_matmul_packed on the packed "
+        f"words, no to_pm1) at B={b_rd}, S={s}: {batch_ms:.3f} ms | {card}")
 
     # -- 4. whole-report parity on the card ------------------------------
     small = SyntheticSource(synth.CommunitySpec(

@@ -56,14 +56,16 @@
 #include <cooperative_groups.h>
 
 #include "hdc_common.cuh"
+#include "mma_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace mma;
+
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStepWords = 32;           // K words per search step
 constexpr int kGroupProtos = 16;         // prototypes per warp group
 constexpr int kStageWords = kGroupProtos * kStepWords;
 
@@ -109,67 +111,14 @@ __host__ __device__ inline Layout layout(int rows, int cluster, int L, int n,
   return s;
 }
 
-__device__ __forceinline__ int swz(int r, int w) { return w ^ ((r & 1) << 2); }
-
-__device__ __forceinline__ void mma_and_popc(int (&c)[4], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t* dst, const void* src,
-                                           int bytes) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// |b| of every prototype row (one warp a row).
-__global__ void row_popcount_kernel(const uint32_t* __restrict__ protos,
-                                    int Wp, int S, int32_t* __restrict__ pc) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= S) return;
-  const uint32_t* p = protos + static_cast<size_t>(row) * Wp;
-  int c = 0;
-  for (int w = lane; w < Wp; w += 32) c += __popc(__ldg(p + w));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    c += __shfl_xor_sync(demeter::kFull, c, off);
-  }
-  if (lane == 0) pc[row] = c;
-}
-
 // Stages 16 prototype rows [pbase, pbase + 16) x words [32 ks, 32 ks + 32)
 // into one ring slot (rows at or past pend are zero-filled).
 __device__ __forceinline__ void issue_step(uint32_t* slot,
                                            const uint32_t* __restrict__ protos,
                                            int Wp, int pbase, int pend,
                                            int ks, int lane) {
-#pragma unroll
-  for (int c = lane; c < kGroupProtos * 8; c += 32) {
-    const int row = c >> 3, part = c & 7;
-    const int p = pbase + row;
-    const uint32_t* src =
-        protos + static_cast<size_t>(p < pend ? p : pbase) * Wp +
-        ks * kStepWords + part * 4;
-    cp_async16(slot + row * kStepWords + ((part ^ (row & 1)) << 2), src,
-               p < pend ? 16 : 0);
-  }
+  stage_step<1, true, true>(slot, protos, Wp, pbase, kGroupProtos, pend,
+                            ks * kStepWords, Wp, lane, 32);
 }
 
 template <int MT>
@@ -394,15 +343,11 @@ cudaError_t launch(const int32_t* tokens, const int32_t* lengths,
       static_cast<int>(lay.total));
   if (err != cudaSuccess) return err;
 
-  row_popcount_kernel<<<(S + 7) / 8, 256, 0, stream>>>(protos, Wp, S, pc);
-  err = cudaGetLastError();
+  err = launch_row_popcount(protos, Wp, Wp, S, pc, stream);
   if (err != cudaSuccess) return err;
 
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  int sms = 0;
+  err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int tiles = (B + 16 * MT - 1) / (16 * MT);
   int splits = sms / (tiles * cluster);

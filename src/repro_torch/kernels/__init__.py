@@ -2,14 +2,17 @@
 
   hdc_encoder    the n-gram encoder (replaces the TPU ``hdc_encoder``).
   fused_profile  fused encode->search (replaces the TPU ``fused_profile``).
-  hamming_am     packed XOR + popcount search (replaces the TPU
-                 ``hamming_am``).
-  am_matmul      +-1 bf16 tensor-core search (replaces the TPU
-                 ``am_matmul``).
+  hamming_am     packed b1 AND + popcount tensor-core search (replaces
+                 the TPU ``hamming_am``).
+  am_matmul      +-1 tensor-core search, on packed words
+                 (``am_matmul_packed``) or +-1 bf16 (``am_matmul``)
+                 (replaces the TPU ``am_matmul``).
+  _search        the packed search entries' shared operand check.
   ops            session-level wrappers (``hdc_encode``, ``to_pm1``,
                  ``am_agreement``, ``fused_agreement``,
                  ``fused_tile_plan``).
 
 Sources live in ``repro_torch/csrc``; :mod:`repro_torch.kernels._build`
-compiles them with ``nvcc`` at the first CUDA call.
+compiles them with ``nvcc`` at the first CUDA call;
+``csrc/mma_common.cuh`` holds the search kernels' shared device code.
 """

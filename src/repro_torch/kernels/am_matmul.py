@@ -3,25 +3,32 @@
 Replaces the TPU kernel ``repro/kernels/am_matmul.py::_kernel``
 (launched by ``am_matmul``) with CUDA C++ for ``sm_90a``
 (``csrc/am_matmul.cu``): ``agreement = (dim + Q_hat @ P_hat.T) / 2`` over
-the {-1, +1} bf16 expansions of the packed vectors.
+the {-1, +1} expansions of the packed vectors.  Two entries:
 
-* What bounds it on the card: bytes.  The bf16 prototype operand is 16x
-  the packed AM (801 MB at the main path's S = 9,780, D = 40,960) and is
-  read from device memory on every call; the ``2 * B * S * D`` flop take
-  less time at the dense bf16 tensor rate.
-* What the design does about it: ``mma.sync`` m16n8k16 bf16 -> fp32 on
-  128 x 128 output tiles, fed by ``ldmatrix`` from a 3-deep ``cp.async``
-  ring of 64-wide K tiles, so the loads stay in flight behind the tensor
-  cores; each prototype tile is streamed once per 128 queries.  B, S and
-  K may be ragged: the edges are zero-filled in shared memory (zeros are
-  inert in the +-1 dot), and nothing is padded in device memory.
+:func:`am_matmul_packed` (the search path's entry, ``ops.am_agreement(...,
+"matmul")``) takes the packed ``(B, W)`` / ``(S, W)`` int32 words.
 
-The result is exact in any summation order: every partial sum is an
-integer of magnitude at most K < 2**24, exact in fp32.
+* What bounds it on the card: operations -- ``2 B S D`` products and
+  adds at the int8 tensor rate; the packed AM is 1/16 of its bf16
+  expansion, so bytes no longer bound it.
+* What the design does about it: ``mma.sync`` m16n8k32 s8, with each
+  packed word expanded to +-1 int8 fragments in registers (a shift, a
+  sign-replicating ``prmt`` and an OR a register), so no +-1 matrix
+  reaches device memory.  A block owns every query of a 256-row tile
+  and a slab of prototypes (``hamming_am.slab_protos``) and walks W in
+  32-word steps, so each prototype word is read once a launch.
 
-:func:`am_matmul` launches the kernel for CUDA tensors and counts the
-launch in ``am_matmul.launches``; for CPU tensors it runs
-:func:`am_matmul_plain`, the plain torch version of the same function.
+:func:`am_matmul` (the TPU kernel's own interface) takes +-1 bf16
+``(B, D)`` / ``(S, D)`` operands: ``mma.sync`` m16n8k16 bf16 -> fp32 on
+128 x 128 output tiles from a 3-deep ``cp.async`` ring; bound by the
+bytes of its bf16 prototype operand.  No path calls it.
+
+Both are exact: every partial sum is an integer of magnitude at most D.
+B, S and W (or D) may be ragged, and nothing is padded in device memory.
+
+Each launches its kernel for CUDA tensors and counts the launch in its
+own ``.launches``; for CPU tensors it runs its plain torch version
+(:func:`am_matmul_packed_plain`, :func:`am_matmul_plain`).
 """
 
 from __future__ import annotations
@@ -30,10 +37,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _search
 
-#: Prototype rows one block covers (``kBN`` in the source); the grid's
-#: second axis holds at most 65,535 blocks.
+#: Prototype rows one block of the bf16 entry covers (``kBN`` in the
+#: source); the grid's second axis holds at most 65,535 blocks.
 BLOCK_S = 128
 
 
@@ -54,6 +61,9 @@ def _lib():
         lib.am_matmul_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.am_matmul_launch.restype = ctypes.c_int
+        lib.am_matmul_packed_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.am_matmul_packed_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -111,3 +121,53 @@ def am_matmul(q_pm: torch.Tensor, p_pm: torch.Tensor, *,
 
 
 am_matmul.launches = 0
+
+
+def am_matmul_packed_plain(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
+                           dim: int | None = None) -> torch.Tensor:
+    """Plain torch version: ``am_matmul_plain(to_pm1(q), to_pm1(p), dim)``
+    over all ``32 W`` bits (``dim`` defaults to ``32 W``; with another
+    ``dim`` it differs from ``hamming_am``, as ``repro``'s
+    ``am_agreement(..., "matmul")`` does)."""
+    from repro_torch.kernels import ops   # ops imports this module
+
+    return am_matmul_plain(ops.to_pm1(q_packed), ops.to_pm1(p_packed),
+                           dim=32 * q_packed.shape[-1] if dim is None
+                           else dim)
+
+
+def am_matmul_packed(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
+                     dim: int | None = None) -> torch.Tensor:
+    """Agreement of the +-1 expansions of packed queries and prototypes.
+
+    Args:
+      q_packed: ``(B, W)`` int32 packed query HD vectors.
+      p_packed: ``(S, W)`` int32 packed prototypes.
+      dim: the logical HD dimension (defaults to ``32 * W``).
+
+    Returns:
+      ``(B, S)`` int32 ``int((dim + to_pm1(q) @ to_pm1(p).T) / 2)``.
+    """
+    if q_packed.device.type == "cpu":
+        return am_matmul_packed_plain(q_packed, p_packed, dim=dim)
+    if q_packed.device.type != "cuda":
+        raise ValueError(f"am_matmul_packed: unsupported device "
+                         f"{q_packed.device}")
+    _search.check_packed(q_packed, p_packed, "am_matmul_packed")
+    (b, w), s = q_packed.shape, p_packed.shape[0]
+    dim = 32 * w if dim is None else dim
+    out = torch.empty((b, s), dtype=torch.int32, device=q_packed.device)
+    if b == 0 or s == 0:
+        return out
+    with torch.cuda.device(q_packed.device):
+        err = _lib().am_matmul_packed_launch(
+            *map(_build.ptr, (q_packed, p_packed, out)), b, s, w, dim,
+            _build.current_stream())
+    if err != 0:
+        raise RuntimeError(f"am_matmul_packed: kernel launch failed with "
+                           f"CUDA error {err} (B={b}, S={s}, W={w})")
+    am_matmul_packed.launches += 1
+    return out
+
+
+am_matmul_packed.launches = 0

@@ -1,17 +1,19 @@
-"""Packed associative-memory search: XOR + popcount agreement.
+"""Packed associative-memory search on the tensor cores.
 
 Replaces the TPU kernel ``repro/kernels/hamming_am.py::_kernel``
 (launched by ``hamming_am``) with CUDA C++ for ``sm_90a``
-(``csrc/hamming_am.cu``).
+(``csrc/hamming_am.cu``): ``agreement = dim - popcount(q ^ p)``.
 
-* What bounds it on the card: operations -- ``B * S * W`` word XOR +
-  popcount + add against ``(B + S) * W * 4`` input bytes; ``__popc``
-  issues at a quarter of the 32-bit integer rate.
-* What the design does about it: a block owns a 64 x 64 output tile and
-  walks W in 32-word chunks staged in shared memory; each thread keeps a
-  4 x 4 register tile of popcount sums, so every staged word is used four
-  times from registers.  B, S and W may be ragged: the edges are staged
-  as zero words, and nothing is padded in device memory.
+* What bounds it on the card: operations -- ``B * S * D`` bit
+  agreements, counted as ``2 B S D``, at the rate measured on the H100 for
+  ``mma.sync`` m16n8k256 b1 ``.and.popc``.
+* What the design does about it: the search runs as that ``mma``, with
+  ``agreement = dim - |a| - |b| + 2 popc(a & b)``.  A block owns every
+  query of a 256-row tile and a slab of prototypes (:func:`slab_protos`)
+  and walks W in 32-word steps, so each prototype word is read once a
+  launch; ``|b|`` comes from the staged slab, ``|a|`` from a small pass
+  over the queries.  B, S and W may be ragged: the edges are staged as
+  zero words, and nothing is padded in device memory.
 
 :func:`hamming_am` launches the kernel for CUDA tensors and counts the
 launch in ``hamming_am.launches``; for CPU tensors it runs
@@ -25,11 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.core import assoc_memory
-from repro_torch.kernels import _build
-
-#: Prototype rows one block covers (``kBN`` in the source); the grid's
-#: second axis holds at most 65,535 blocks.
-BLOCK_S = 64
+from repro_torch.kernels import _build, _search
 
 
 def hamming_am_plain(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
@@ -45,29 +43,12 @@ def _lib():
     lib = _build.library("hamming_am")
     if not getattr(lib, "_typed", False):
         lib.hamming_am_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.hamming_am_launch.restype = ctypes.c_int
+        lib.hamming_am_slab_protos.argtypes = [ctypes.c_int] * 2
+        lib.hamming_am_slab_protos.restype = ctypes.c_int
         lib._typed = True
     return lib
-
-
-def _check(q, p) -> None:
-    for name, t in (("q_packed", q), ("p_packed", p)):
-        if t.device != q.device:
-            raise ValueError(f"hamming_am: {name} is on {t.device}, "
-                             f"q_packed on {q.device}")
-        if t.dtype != torch.int32:
-            raise ValueError(f"hamming_am: {name} must be int32 bit "
-                             f"patterns, got {t.dtype}")
-        if t.ndim != 2 or not t.is_contiguous():
-            raise ValueError(f"hamming_am: {name} must be a contiguous "
-                             f"2-d tensor, got shape {tuple(t.shape)}")
-    if q.shape[1] != p.shape[1]:
-        raise ValueError(f"hamming_am: q_packed {tuple(q.shape)} and "
-                         f"p_packed {tuple(p.shape)} differ in W")
-    if -(-p.shape[0] // BLOCK_S) > 65535:
-        raise ValueError(f"hamming_am: at most {65535 * BLOCK_S} "
-                         f"prototypes per launch, got {p.shape[0]}")
 
 
 def hamming_am(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
@@ -86,16 +67,17 @@ def hamming_am(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
         return hamming_am_plain(q_packed, p_packed, dim=dim)
     if q_packed.device.type != "cuda":
         raise ValueError(f"hamming_am: unsupported device {q_packed.device}")
-    _check(q_packed, p_packed)
+    _search.check_packed(q_packed, p_packed, "hamming_am")
     (b, w), s = q_packed.shape, p_packed.shape[0]
     dim = 32 * w if dim is None else dim
     out = torch.empty((b, s), dtype=torch.int32, device=q_packed.device)
     if b == 0 or s == 0:
         return out
+    row_pc = torch.empty(b, dtype=torch.int32, device=q_packed.device)
     with torch.cuda.device(q_packed.device):
         err = _lib().hamming_am_launch(
-            *map(_build.ptr, (q_packed, p_packed, out)), b, s, w, dim,
-            _build.current_stream())
+            *map(_build.ptr, (q_packed, p_packed, row_pc, out)), b, s, w,
+            dim, _build.current_stream())
     if err != 0:
         raise RuntimeError(f"hamming_am: kernel launch failed with CUDA "
                            f"error {err} (B={b}, S={s}, W={w})")
@@ -104,3 +86,10 @@ def hamming_am(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
 
 
 hamming_am.launches = 0
+
+
+def slab_protos(b: int, s: int) -> int:
+    """Prototypes one block of the launch at ``(b, s)`` covers on the
+    current card: ``16 NT``, with NT chosen by ``mma::slab::pick_nt``
+    (the same slab for ``am_matmul``'s packed entry)."""
+    return _lib().hamming_am_slab_protos(b, s)

@@ -2,8 +2,8 @@
 :mod:`repro.kernels.ops`).
 
 They take the session-level arguments (item memory, tie vector, HD
-space, formulation), build the rolled item memory or the +-1 expansion
-and call the kernel wrappers, which launch on CUDA tensors and run the
+space, formulation), build the rolled item memory and call the kernel
+wrappers, which launch on CUDA tensors and run the
 plain torch versions on CPU tensors.  Unlike ``repro``'s
 ``am_agreement``, nothing is padded to tile multiples: the search
 kernels take ragged shapes.
@@ -31,6 +31,8 @@ def to_pm1(packed: torch.Tensor) -> torch.Tensor:
 
     Plain torch on every device, as ``repro`` runs it outside any kernel;
     the rows are expanded a chunk at a time to bound the peak memory.
+    The search path does not call it on CUDA tensors: the packed
+    ``am_matmul`` entry expands the words on chip.
     """
     lead, w = packed.shape[:-1], packed.shape[-1]
     rows = packed.reshape(-1, w)
@@ -50,15 +52,16 @@ def am_agreement(queries: torch.Tensor, prototypes: torch.Tensor, dim: int,
     Args:
       queries: ``(B, W)`` int32 packed.
       prototypes: ``(S, W)`` int32 packed.
-      formulation: ``"matmul"`` (+-1 bf16 on the tensor cores, kernel 3,
-        default) or ``"packed"`` (XOR + popcount, kernel 4).
+      formulation: ``"matmul"`` (+-1 products on the tensor cores from the
+        packed words, kernel 3, default) or ``"packed"`` (b1 AND +
+        popcount on the tensor cores, kernel 4).
 
     Returns:
       ``(B, S)`` int32 agreement in [0, dim].
     """
     if formulation == "matmul":
-        return _am_matmul.am_matmul(to_pm1(queries), to_pm1(prototypes),
-                                    dim=dim)
+        return _am_matmul.am_matmul_packed(queries.contiguous(),
+                                           prototypes.contiguous(), dim=dim)
     if formulation == "packed":
         return _hamming_am.hamming_am(queries.contiguous(),
                                       prototypes.contiguous(), dim=dim)

@@ -14,10 +14,10 @@ Registered backends:
 
   reference        plain torch encoder + float32 +-1 matmul agreement.
   reference_packed plain torch encoder + packed XOR+popcount agreement.
-  cuda_matmul      the CUDA encoder kernel + the +-1 bf16 tensor-core
-                   search kernel (``am_matmul``).
-  cuda_packed      the CUDA encoder kernel + the packed XOR+popcount
-                   search kernel (``hamming_am``).
+  cuda_matmul      the CUDA encoder kernel + the +-1 tensor-core search
+                   kernel on packed words (``am_matmul_packed``).
+  cuda_packed      the CUDA encoder kernel + the b1 AND+popcount
+                   tensor-core search kernel (``hamming_am``).
   cuda_fused       the hand-written CUDA encoder and fused encode->search
                    kernels (:mod:`repro_torch.pipeline.fused`).
 

@@ -1,7 +1,7 @@
 """The port's standalone search kernels and CLI against ``repro``.
 
-On the CPU the wrappers of ``hamming_am`` and ``am_matmul`` run their
-plain torch versions, which must equal ``repro``'s ``ops.am_agreement``
+On the CPU the wrappers of ``hamming_am`` and ``am_matmul`` (both its
+packed and its bf16 entry) run their plain torch versions, which must equal ``repro``'s ``ops.am_agreement``
 (Pallas in interpret mode), ``ops.to_pm1`` and the oracles
 ``ref.hamming_am_ref`` / ``ref.am_matmul_ref`` exactly.  The ``cuda``
 cases hold the CUDA kernels against those plain versions on the card and
@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.kernels import am_matmul, hamming_am, ops
+from repro_torch.kernels import _search, am_matmul, hamming_am, ops
 from repro_torch.launch import profile_run
 
 #: ``tests/test_kernels.py::test_am_agreement_sweep``'s shapes (b, s, w).
@@ -126,13 +126,18 @@ def test_to_pm1_chunks_rows(monkeypatch):
                        whole.reshape(37, 1, 192))
 
 
+def _counts():
+    return (hamming_am.hamming_am.launches, am_matmul.am_matmul.launches,
+            am_matmul.am_matmul_packed.launches)
+
+
 def test_plain_versions_count_no_launches():
     q, p = _packed(4, 9, 8, seed=1)
-    before = (hamming_am.hamming_am.launches, am_matmul.am_matmul.launches)
+    before = _counts()
     for formulation in ("matmul", "packed"):
         ops.am_agreement(_t(q), _t(p), 256, formulation)
-    assert (hamming_am.hamming_am.launches,
-            am_matmul.am_matmul.launches) == before
+    am_matmul.am_matmul(ops.to_pm1(_t(q)), ops.to_pm1(_t(p)))
+    assert _counts() == before
 
 
 @pytest.mark.parametrize("make,match", [
@@ -146,8 +151,26 @@ def test_plain_versions_count_no_launches():
               torch.zeros(3, 2, 2, dtype=torch.int32)), "2-d"),
 ])
 def test_hamming_am_checks_its_inputs(make, match):
-    with pytest.raises(ValueError, match=match):
-        hamming_am._check(*make())
+    with pytest.raises(ValueError, match=f"hamming_am: .*{match}"):
+        _search.check_packed(*make(), "hamming_am")
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: (torch.zeros(2, 4, dtype=torch.int64),
+              torch.zeros(3, 4, dtype=torch.int32)), "int32"),
+    (lambda: (torch.zeros(2, 4, dtype=torch.int32),
+              torch.zeros(3, 4, dtype=torch.bfloat16)), "int32"),
+    (lambda: (torch.zeros(2, 4, dtype=torch.int32),
+              torch.zeros(3, 5, dtype=torch.int32)), "differ in W"),
+    (lambda: (torch.zeros(4, 2, dtype=torch.int32).T,
+              torch.zeros(3, 4, dtype=torch.int32)), "contiguous"),
+    (lambda: (torch.zeros(2, 4, dtype=torch.int32),
+              torch.zeros(3, 2, 2, dtype=torch.int32)), "2-d"),
+])
+def test_am_matmul_packed_checks_its_inputs(make, match):
+    """The packed entry shares hamming_am's checks, under its own name."""
+    with pytest.raises(ValueError, match=f"am_matmul_packed: .*{match}"):
+        _search.check_packed(*make(), "am_matmul_packed")
 
 
 @pytest.mark.parametrize("make,match", [
@@ -170,6 +193,8 @@ CUDA_CASES = SWEEP + [
     (253, 1001, 1280),   # the main path's width, ragged B and S
     (3, 130, 33),        # W = 33: not a multiple of any tile
     (1, 1, 1),
+    (513, 130, 64),      # three 256-query tiles, the last of one row
+    (300, 700, 40),      # W = 40: a partial 32-word step, 16-byte rows
 ]
 
 
@@ -202,12 +227,13 @@ def test_hamming_am_kernel_matches_plain(cuda, b, s, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,w", CUDA_CASES)
 def test_am_matmul_kernel_matches_plain(cuda, b, s, w):
+    """The bf16 entry (the TPU kernel's interface; no path calls it)."""
     q, p = _packed(b, s, w, seed=b * s + w + 1)
     q = _with_equal_and_complement(q, p)
     tq, tp = ops.to_pm1(_t(q)), ops.to_pm1(_t(p))
     want = am_matmul.am_matmul_plain(tq, tp)
     before = am_matmul.am_matmul.launches
-    got = ops.am_agreement(_t(q).to(cuda), _t(p).to(cuda), 32 * w, "matmul")
+    got = am_matmul.am_matmul(tq.to(cuda), tp.to(cuda), dim=32 * w)
     torch.cuda.synchronize()
     assert am_matmul.am_matmul.launches == before + 1
     assert torch.equal(got.cpu(), want)
@@ -215,6 +241,29 @@ def test_am_matmul_kernel_matches_plain(cuda, b, s, w):
     assert int(got[0, 0]) == 32 * w
     if b > 1:
         assert int(got[1, s - 1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,w", CUDA_CASES)
+@pytest.mark.parametrize("extra", [0, 64, -7])
+def test_am_matmul_packed_kernel_matches_plain(cuda, b, s, w, extra):
+    """The packed entry on the search path (``ops.am_agreement(...,
+    "matmul")``), at dim = 32 W (== hamming_am) and at dim != 32 W."""
+    q, p = _packed(b, s, w, seed=b * s + w + 2)
+    q = _with_equal_and_complement(q, p)
+    dim = 32 * w + extra
+    want = am_matmul.am_matmul_packed_plain(_t(q), _t(p), dim=dim)
+    before = _counts()
+    got = ops.am_agreement(_t(q).to(cuda), _t(p).to(cuda), dim, "matmul")
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1], before[2] + 1)
+    assert torch.equal(got.cpu(), want)
+    if extra == 0:
+        assert torch.equal(got.cpu(),
+                           hamming_am.hamming_am_plain(_t(q), _t(p)))
+        assert int(got[0, 0]) == 32 * w
+        if b > 1:
+            assert int(got[1, s - 1]) == 0
 
 
 @pytest.mark.cuda
@@ -238,6 +287,10 @@ def test_search_wrappers_reject_what_the_kernels_do_not_take(cuda):
     w = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         hamming_am.hamming_am(w.long(), w)
+    with pytest.raises(ValueError, match="int32"):
+        am_matmul.am_matmul_packed(w, w.float())
+    with pytest.raises(ValueError, match="differ in W"):
+        am_matmul.am_matmul_packed(w, w[:, :5].contiguous())
     with pytest.raises(ValueError, match="bfloat16"):
         am_matmul.am_matmul(w.float(), w.float())
     with pytest.raises(ValueError, match="contiguous"):
