@@ -24,6 +24,9 @@ no result line):
              prototypes, and at a ragged W = 1,001, each with a query equal
              to a prototype and one equal to a complement, all equal to
              each other; and at dim != 32 W against their plain versions.
+             Then the serving path's cohorts: 256 reads padded to 256 and
+             to 2,048 tokens, 56 of them of length 0, through the encoder
+             and through the fused kernel at every tiling that fits.
 3. main path ``ProfilingSession(..., backend="cuda_fused")`` builds the
              RefDB of a 20 species x 4,000,000 bp synthetic community
              (~9.8k prototypes, ~50 MB) and profiles 32,768 reads of 150 bp,
@@ -53,6 +56,25 @@ no result line):
 5. cli       ``python -m repro_torch.launch.profile_run --synthetic`` with
              ``--backend cuda_packed`` and ``--backend cuda_matmul``: both
              exit 0 and write equal report JSONs.
+6. serving   at phase 3's width and genomes: ``RefDBRegistry.create``
+             through the encoder kernel (its launches counted, prototypes
+             equal to phase 3's); a ``ProfilingService`` on ``cuda_fused``
+             under 16 requests of 2,048 reads (8 x 150 bp, 4 x 100 bp,
+             4 x 1,500 bp: cohorts padded to 128, 256 and 2,048), each
+             report equal to a sequential ``profile``, with reads/s and
+             p50/p99 latency; a ``TenantRouter`` with two tenants and two
+             pump threads, with an add-species delta published mid-traffic
+             (each report equal to a sequential profile on the version
+             that admitted it); the service load again with metrics on
+             and off in turns; one service load and one phase 3 profile
+             under ``torch.profiler`` (the device's busy share and its
+             top kernels); the tile autotuner at the main path's shape, a tuned session
+             against phase 3's report, and tuned cohorts at buckets 2,048
+             and 4,096 (also from a cache whose 256-bucket pick is
+             bb 32 / cluster 2); and ``serve_profiler --smoke`` on
+             ``cuda_packed`` (two tenants, two workers) and ``cuda_matmul``
+             in child processes.  Counters are set to 0 just before each
+             of the create, service and router runs and read just after.
 
 The last lines are one JSON object per kernel list and
 ``{"ok": true, "device": {...}}``.
@@ -62,6 +84,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -273,6 +296,324 @@ def run_cli(backend: str, out_dir: str) -> dict:
         return json.load(f)
 
 
+def run_serve_cli(args: list[str]) -> None:
+    """``serve_profiler --smoke`` (which implies ``--check``) on the card
+    in a child process; a mismatch exits non-zero."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_profiler",
+           "--smoke", *args]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"serve_profiler {' '.join(args)} exited {out.returncode}:\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    lines = [ln.strip() for ln in out.stdout.splitlines()
+             if ln.startswith(("backend ", "check OK", "fleet:"))
+             or "requests x" in ln]
+    say(f"[serve] serve_profiler --smoke {' '.join(args)}: "
+        f"{' | '.join(lines)} ({time.perf_counter() - t0:.1f} s with "
+        f"start-up)")
+
+
+def traced_busy(label: str, fn, trace_dir: str, card: str) -> None:
+    """Run ``fn`` under ``obs.torch_trace`` and print the device's busy
+    share of the wall time (the sum of the trace's kernel events; one
+    stream, so they do not overlap) and the kernels that took most of
+    it."""
+    import torch
+
+    from repro_torch import obs
+
+    torch.cuda.synchronize()
+    with obs.torch_trace(trace_dir):
+        t0 = time.perf_counter()           # the profiler's start and the
+        fn()                               # trace's export stay outside
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f).get("traceEvents", [])
+    busy: dict[str, float] = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        short = re.split(r"[<(]", e["name"].replace(
+            "(anonymous namespace)::", "").removeprefix("void "))[0]
+        short = short.rsplit("::", 1)[-1]
+        busy[short] = busy.get(short, 0.0) + e["dur"] / 1e6
+    if not busy:
+        say(f"[trace] {label}: no kernel events in its torch.profiler "
+            f"trace ({len(events)} events); device busy share not measured")
+        return
+    t_busy = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+    say(f"[trace] {label} under torch.profiler: {wall:.3f} s wall, device "
+        f"busy {t_busy:.3f} s = {100 * t_busy / wall:.1f} % (idle "
+        f"{100 - 100 * t_busy / wall:.1f} %) | "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in top) + f" | {card}")
+
+
+def serving_phase(*, config, sample, db, session, main_report, card,
+                  out_dir, zero_counts, read_counts) -> None:
+    """Phase 6: the serving path at the main path's full width."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.assoc_memory import window_tokens
+    from repro_torch.genomics import synth
+    from repro_torch.kernels import autotune, fused_profile
+    from repro_torch.pipeline import ArraySource, ProfilingSession
+    from repro_torch.serve import (ProfilingService, RefDBRegistry,
+                                   TenantRouter)
+
+    # -- 6.1 registry create through the encoder kernel ------------------
+    root = os.path.join(out_dir, "refdbs")
+    shutil.rmtree(root, ignore_errors=True)
+    registry = RefDBRegistry(root=root)
+    batches = sum(-(-len(window_tokens(g, config.window,
+                                       config.effective_stride)[0])
+                    // config.batch_size) for g in sample.genomes.values())
+    zero_counts()
+    t0 = time.perf_counter()
+    snap1 = registry.create("food", sample.genomes, config)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    runs = read_counts()
+    say(f"[serve] registry create food:v1 {create_s:.3f} s (snapshot written "
+        f"to {os.path.relpath(root, ROOT)}) | launches {json.dumps(runs)}")
+    if runs["hdc_encoder"] != batches or runs["fused_profile"] != 0:
+        fail(f"registry create launched {runs}, want hdc_encoder {batches} "
+             f"(one a 256-window batch) and nothing else")
+    if not (torch.equal(snap1.db.prototypes, db.prototypes)
+            and torch.equal(snap1.db.proto_species, db.proto_species)):
+        fail("registry create: prototypes differ from phase 3's build_refdb")
+    say(f"[serve] registry v1 prototypes == phase 3's ({db.num_prototypes} "
+        f"rows, bit-exact); {batches} encoder launches")
+
+    # -- 6.2 the service under mixed read lengths ------------------------
+    per_request = 2048
+    mix = (150, 100, 150, 1500) * 4               # 8 x 150, 4 x 100, 4 x 1500
+    t0 = time.perf_counter()
+    pools = {}
+    for n_len in sorted(set(mix)):
+        spec = dataclasses.replace(sample.spec, read_len=n_len)
+        _, toks, lens, _, _ = synth.make_sample(
+            spec, num_reads=mix.count(n_len) * per_request)
+        pools[n_len] = (toks, lens)
+    taken = {n_len: 0 for n_len in pools}
+    requests = []
+    for n_len in mix:
+        k = taken[n_len]
+        toks, lens = pools[n_len]
+        requests.append(ArraySource(toks[k:k + per_request],
+                                    lens[k:k + per_request]))
+        taken[n_len] = k + per_request
+    total = per_request * len(mix)
+    say(f"[serve] {len(mix)} requests x {per_request} reads ({total} reads: "
+        f"8 x 150 bp, 4 x 100 bp, 4 x 1500 bp; made in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    sequential = {1: [session.profile(src, refdb=db).to_dict()
+                      for src in requests]}
+    torch.cuda.synchronize()
+    say(f"[serve] sequential profiles of the 16 requests: "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def serve_load(sess, metrics=None) -> tuple[list, ProfilingService,
+                                                 float, dict]:
+        service = ProfilingService(sess, max_active=8, metrics=metrics)
+        zero_counts()
+        t_0 = time.perf_counter()
+        with service:                  # one background pump thread
+            hs = [service.submit(src) for src in requests]
+            reps = [h.result(timeout=600) for h in hs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_0
+        counts = read_counts()
+        if [r.to_dict() for r in reps] != sequential[1]:
+            bad = [h.request_id for h, r, w in zip(hs, reps, sequential[1])
+                   if r.to_dict() != w]
+            fail(f"served reports differ from sequential profiles: {bad}")
+        return hs, service, wall, counts
+
+    hs, service, wall_serve, counts = serve_load(session)
+    lat = sorted(h.latency_s for h in hs)
+    fill = total / (service.cohorts_run * config.batch_size)
+    say(f"[serve] ProfilingService cuda_fused, max_active 8: {total} reads "
+        f"in {wall_serve:.3f} s | {total / wall_serve:.0f} reads/s | "
+        f"latency p50 "
+        f"{np.percentile(lat, 50) * 1e3:.1f} ms p99 "
+        f"{np.percentile(lat, 99) * 1e3:.1f} ms | {service.cohorts_run} "
+        f"cohorts, mean fill {fill:.3f} | launches {json.dumps(counts)} | "
+        f"{card}")
+    if counts["fused_profile"] != service.cohorts_run \
+            or counts["hdc_encoder"] != 0:
+        fail(f"service: {counts} for {service.cohorts_run} cohorts, want "
+             f"one fused_profile launch a cohort and nothing else")
+    say(f"[serve] all {len(hs)} served reports == sequential "
+        f"ProfilingSession.profile (bit-exact)")
+
+    # -- 6.3 the router: two tenants, two pumps, a delta mid-traffic -----
+    rng = np.random.default_rng(sample.spec.seed + 101)
+    delta = {"species_new": rng.integers(0, 4, len(next(iter(
+        sample.genomes.values()))), dtype=np.int32)}
+    delta_batches = -(-len(window_tokens(
+        delta["species_new"], config.window, config.effective_stride)[0])
+        // config.batch_size)
+    router = TenantRouter(registry)
+    for tenant in ("a", "b"):
+        router.add_tenant(tenant, database="food", max_active=4,
+                          max_queue=16)
+    routed = []
+    zero_counts()
+    t0 = time.perf_counter()
+    router.start(workers=2)
+    try:
+        for i, src in enumerate(requests[:8]):
+            routed.append((i, router.submit(src, tenant="ab"[i % 2])))
+        deadline = time.monotonic() + 300
+        while not any(h.done for _, h in routed):
+            if time.monotonic() > deadline:
+                fail("router: no request finished within 300 s")
+            time.sleep(0.001)
+        t_delta = time.perf_counter() - t0
+        snap2 = registry.apply_delta("food", add=delta)
+        for i, src in enumerate(requests[8:], start=8):
+            routed.append((i, router.submit(src, tenant="ab"[i % 2])))
+        reps = [(i, h, h.result(timeout=600)) for i, h in routed]
+    finally:
+        router.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    router.close()
+    s2 = ProfilingSession(config)
+    s2.adopt_refdb(snap2.db)
+    sequential[2] = {}
+    bad = []
+    for i, h, rep in reps:
+        if h.version == 2 and i not in sequential[2]:
+            sequential[2][i] = s2.profile(requests[i]).to_dict()
+        want = sequential[1][i] if h.version == 1 else sequential[2][i]
+        if rep.to_dict() != want:
+            bad.append(h.request_id)
+    versions = sorted({h.version for _, h, _ in reps})
+    say(f"[serve] TenantRouter tenants a, b, workers 2: {total} reads in "
+        f"{wall:.3f} s | {total / wall:.0f} reads/s | delta "
+        f"+species_new -> v{snap2.version} at t={t_delta:.3f} s "
+        f"({router.swaps} swap, retired {router.retired}) | versions "
+        f"{versions} | launches {json.dumps(counts)} (read after both "
+        f"pumps stopped; the counters are locked) | {card}")
+    if bad:
+        fail(f"routed reports differ from sequential profiles on their "
+             f"admitted versions: {bad}")
+    if versions != [1, 2]:
+        fail(f"router requests ran on versions {versions}, want [1, 2]")
+    if counts["hdc_encoder"] != delta_batches or counts["fused_profile"] < 1:
+        fail(f"router phase launched {counts}, want hdc_encoder "
+             f"{delta_batches} (the delta) and fused_profile")
+    say(f"[serve] all {len(reps)} routed reports == sequential profiles on "
+        f"their admitted version ({sum(h.version == 1 for _, h, _ in reps)} "
+        f"on v1, {sum(h.version == 2 for _, h, _ in reps)} on v2; "
+        f"bit-exact); the delta launched the encoder {delta_batches} times")
+
+    # -- 6.4 metrics on against off, in turns: on, off, on ---------------
+    walls = {"off": [wall_serve], "on": []}
+    for mode in ("on", "off", "on"):
+        if mode == "on":
+            reg = obs.enable_metrics()
+        try:
+            s_obs = ProfilingSession(config)
+            s_obs.adopt_refdb(db)
+            walls[mode].append(serve_load(s_obs)[2])
+        finally:
+            obs.disable()
+    names = ("serve_reads_classified_total",
+             "serve_cohort_padding_rows_total",
+             "session_classify_batches_total")
+    vals = {k: reg.counter(k).total() for k in names}
+    say(f"[serve] metrics on: reports == metrics off (bit-exact) | reads/s "
+        f"off {' '.join(f'{total / x:.0f}' for x in walls['off'])}, on "
+        f"{' '.join(f'{total / x:.0f}' for x in walls['on'])} | "
+        + " | ".join(f"{k} {v:.0f}" for k, v in vals.items()))
+    if vals["serve_reads_classified_total"] != total:
+        fail(f"serve_reads_classified_total {vals} != {total}")
+
+    # -- 6.4b where the time goes: a service load and a profile, traced ---
+    traced_busy("one service load", lambda: serve_load(session),
+                os.path.join(out_dir, "serve_trace"), card)
+    traced_busy("one cuda_fused profile of the 32,768 150-bp reads",
+                lambda: session.profile(sample, refdb=db),
+                os.path.join(out_dir, "profile_trace"), card)
+
+    # -- 6.5 the autotuner --------------------------------------------------
+    cache = os.path.join(out_dir, "autotune.json")
+    if os.path.exists(cache):
+        os.unlink(cache)
+    t0 = time.perf_counter()
+    tiles, cached = autotune.tune(
+        config.space, batch=config.batch_size, num_prototypes=db.num_prototypes,
+        read_len=150, path=cache)
+    key = autotune.cache_key(config.batch_size, config.space.num_words,
+                             db.num_prototypes, config.space.dim, 150)
+    entry = autotune.load_cache(cache)[key]
+    say(f"[tune] {key}: {entry['swept']} feasible tilings timed in "
+        f"{time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                    for k, v in sorted(entry["times_s"].items()))
+        + f" | pick bb {tiles['bb']} / cluster {tiles['cluster']} | {card}")
+    if cached:
+        fail("autotune: the fresh cache reported a hit")
+    opts = {"autotune": True, "autotune_cache": cache}
+    tuned = ProfilingSession(dataclasses.replace(
+        config, backend_options=opts))
+    if tuned.profile(sample, refdb=db).to_dict() != main_report:
+        fail("the autotuned cuda_fused session's report differs from "
+             "phase 3's")
+    say(f"[tune] autotune=true session == phase 3's report (tiles "
+        f"{tuned.backend.tiles})")
+    # A pick cached for 150-token reads (bucket 256), here the widest one
+    # that fits there (bb 32 / cluster 2), must not reach a 2,048 cohort.
+    poisoned = os.path.join(out_dir, "autotune_poisoned.json")
+    autotune.save_cache({key: {"tiles": {"bb": 32, "cluster": 2}}}, poisoned)
+    spec = dataclasses.replace(sample.spec, read_len=3000)
+    _, t3k, l3k, _, _ = synth.make_sample(spec, num_reads=512)
+    long_reads = {1500: ArraySource(pools[1500][0][:512],
+                                    pools[1500][1][:512]),
+                  3000: ArraySource(t3k, l3k)}
+    for cache_file in (cache, poisoned):
+        sess = ProfilingSession(dataclasses.replace(
+            config, backend_options={"autotune": True,
+                                     "autotune_cache": cache_file}))
+        sess.adopt_refdb(db)
+        service = ProfilingService(sess, max_active=8)
+        for n_len, src in long_reads.items():
+            h = service.submit(src)
+            service.run_until_idle()
+            got = h.result(timeout=0).to_dict()
+            if got != session.profile(src, refdb=db).to_dict():
+                fail(f"autotuned service at {n_len} bp differs from the "
+                     f"sequential profile")
+        picks = {f"L{b}": t for (_, b), t in sess.backend.tuned.items()}
+        for (_, b), t in sess.backend.tuned.items():
+            smem = fused_profile.smem_bytes(
+                t["bb"], t["cluster"], b, config.space.ngram,
+                config.space.alphabet_size, config.space.num_words)
+            if smem > fused_profile.MAX_SMEM_BYTES:
+                fail(f"autotune picked {t} for bucket {b}: {smem} bytes")
+        say(f"[tune] {os.path.basename(cache_file)}: cohorts of 1500 bp "
+            f"(bucket 2048) and 3000 bp (bucket 4096) ran == sequential; "
+            f"picks per bucket {json.dumps(picks)}")
+
+    # -- 6.6 the serve_profiler CLI -------------------------------------------
+    run_serve_cli(["--backend", "cuda_packed", "--tenants", "2",
+                   "--workers", "2"])
+    run_serve_cli(["--backend", "cuda_matmul"])
+
+
 def main() -> int:
     sweep = "--sweep" in sys.argv[1:]
     import torch
@@ -382,6 +723,38 @@ def main() -> int:
         f"{fused_profile.DEFAULT_BB}/{fused_profile.DEFAULT_CLUSTER}, 32/2 "
         f"and 16/8 (bit-exact; max agreement {int(agree.max())} of "
         f"{space.dim})")
+    # The serving path's cohorts: reads padded to a bucket width, rows of
+    # length 0 past the live reads, at every tiling that fits the width.
+    for width, live in ((256, (150, 100, 256, 17)), (2048, (1500, 100,
+                                                            2048, 150))):
+        b_tok = np.zeros((256, width), np.int32)
+        b_len = np.zeros(256, np.int32)
+        for i in range(200):
+            n_i = live[i % len(live)]
+            s_i = int(rng.integers(0, 8192 - n_i))
+            b_tok[i, :n_i] = wins[i % 256, s_i:s_i + n_i]
+            b_len[i] = n_i
+        t_b, l_b = torch.from_numpy(b_tok).to(dev), torch.from_numpy(b_len).to(dev)
+        errs["hdc_encoder"] = max(errs["hdc_encoder"], expect_equal(
+            f"hdc_encoder cohort L={width}",
+            hdc_encoder.hdc_encode(t_b, l_b, imr, tie),
+            hdc_encoder.hdc_encode_plain(t_b, l_b, imr, tie)))
+        want_b = fused_profile.fused_profile_plain(t_b, l_b, imr, tie,
+                                                   protos, dim=space.dim)
+        fit = [(bb_p, cl_p) for bb_p in fused_profile.BATCH_TILES
+               for cl_p in fused_profile.CLUSTER_SIZES
+               if fused_profile.smem_bytes(bb_p, cl_p, width, n, alphabet, w)
+               <= fused_profile.MAX_SMEM_BYTES]
+        for bb_p, cl_p in fit:
+            errs["fused_profile"] = max(errs["fused_profile"], expect_equal(
+                f"fused_profile cohort L={width} bb={bb_p} cluster={cl_p}",
+                fused_profile.fused_profile(t_b, l_b, imr, tie, protos,
+                                            dim=space.dim, bb=bb_p,
+                                            cluster=cl_p), want_b))
+        say(f"[parity] serving cohort L = {width} (200 reads of lengths "
+            f"{'/'.join(map(str, live))}, 56 rows of length 0): hdc_encoder "
+            f"== plain, fused_profile == plain at the {len(fit)} tilings "
+            f"that fit ({' '.join(f'{a}/{c}' for a, c in fit)}) (bit-exact)")
 
     # The search kernels: the encoded windows plus random rows against the
     # same 1,001 prototypes, then a ragged W = 1,001 (a word tail in the
@@ -507,7 +880,6 @@ def main() -> int:
     say(f"[time] fused_profile split at B=256, L=150, S={s}: encode "
         f"{enc_ms:.3f} ms (S=1) + search {rows[1]['ms'] - enc_ms:.3f} ms")
     if sweep:
-        lib = fused_profile._lib()
         for bb in fused_profile.BATCH_TILES:
             for cl in fused_profile.CLUSTER_SIZES:
                 if fused_profile.smem_bytes(bb, cl, 150, n, alphabet, w) > \
@@ -518,8 +890,7 @@ def main() -> int:
                     bb=bb, cluster=cl), reps=5)
                 plan = ops.fused_tile_plan(b_rd, s, w, bb=bb, cluster=cl,
                                            read_len=150, sms=sms)
-                active = lib.fused_profile_max_active_clusters(bb, cl, 150,
-                                                               n, w)
+                active = fused_profile.max_active_clusters(bb, cl, 150, n, w)
                 say(f"[sweep] fused_profile bb={bb} cluster={cl}: "
                     f"{ms:.3f} ms | {plan['tiles']} tiles x {plan['splits']} "
                     f"splits = {plan['tiles'] * plan['splits']} clusters, "
@@ -704,6 +1075,13 @@ def main() -> int:
         fail("profile_run reports differ between cuda_packed and cuda_matmul")
     say("[cli] profile_run --synthetic: cuda_packed and cuda_matmul "
         "report JSONs are equal")
+
+    # -- 6. the serving path at full width --------------------------------
+    t0 = time.perf_counter()
+    serving_phase(config=config, sample=sample, db=db, session=session,
+                  main_report=main_report, card=card, out_dir=out_dir,
+                  zero_counts=zero_counts, read_counts=read_counts)
+    say(f"[serve] serving phase {time.perf_counter() - t0:.1f} s")
 
     say(card)
     say(json.dumps({"kernels": rows}))

@@ -20,4 +20,5 @@ Conventions shared by every module:
   CPU tensors their wrappers run the plain PyTorch versions beside them.
 """
 
-__all__ = ["core", "eval", "genomics", "kernels", "launch", "pipeline"]
+__all__ = ["core", "eval", "genomics", "kernels", "launch", "obs", "pipeline",
+           "serve"]

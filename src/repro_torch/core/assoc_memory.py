@@ -3,7 +3,7 @@
 Counterpart of :mod:`repro.core.assoc_memory`: one prototype HD vector
 per reference-genome window, tagged with its species.  ``RefDB`` holds
 torch tensors (prototypes as ``int32`` bit patterns).  The add/remove
-species deltas are not ported yet.
+species deltas (:func:`apply_delta`) work on the database's own device.
 """
 
 from __future__ import annotations
@@ -141,6 +141,88 @@ def build_refdb(genomes: dict[str, np.ndarray], space: HDSpace, *,
     for name, toks in genomes.items():
         builder.add_genome(name, toks)
     return builder.finish()
+
+
+def remove_species(db: RefDB, names) -> RefDB:
+    """Drop species (and their prototype rows) from a RefDB.
+
+    The surviving rows are byte-identical to the original build -- removal
+    never re-encodes -- and species ids are remapped to stay contiguous.
+    Because ``proto_species`` is non-decreasing and the remap is monotone,
+    the invariant :func:`species_scores` relies on survives.  Raises on
+    unknown names and on removing every species (an AM must stay
+    non-empty; delete the database instead).  The result lives on
+    ``db``'s device.
+    """
+    drop = set(names)
+    unknown = drop - set(db.species_names)
+    if unknown:
+        raise KeyError(f"cannot remove unknown species {sorted(unknown)}; "
+                       f"database has {list(db.species_names)}")
+    if len(drop) == db.num_species:
+        raise ValueError("refusing to remove every species (an associative "
+                         "memory cannot be empty); delete the database")
+    if not drop:
+        return db
+    dev = db.prototypes.device
+    keep = [i for i, n in enumerate(db.species_names) if n not in drop]
+    keep_t = torch.tensor(keep, dtype=torch.int64, device=dev)
+    remap = torch.full((db.num_species,), -1, dtype=torch.int32, device=dev)
+    remap[keep_t] = torch.arange(len(keep), dtype=torch.int32, device=dev)
+    ps = db.proto_species.long()
+    rows = remap[ps] >= 0
+    return RefDB(
+        prototypes=db.prototypes[rows].contiguous(),
+        proto_species=remap[ps[rows]],
+        genome_lengths=db.genome_lengths[keep_t].contiguous(),
+        num_species=len(keep),
+        species_names=tuple(db.species_names[i] for i in keep),
+    )
+
+
+def add_species(db: RefDB, addition: RefDB) -> RefDB:
+    """Append another RefDB's species to ``db`` (incremental add delta).
+
+    ``addition`` is a streaming build of only the *new* genomes (same
+    space/window/stride -- the caller guarantees build-config parity; the
+    packed widths are checked here).  Appending keeps ``proto_species``
+    non-decreasing: new species take ids ``db.num_species ..``.  The
+    existing rows are untouched, so queries against surviving species are
+    bit-identical before and after the delta.  The result lives on
+    ``db``'s device.
+    """
+    if db.prototypes.shape[1] != addition.prototypes.shape[1]:
+        raise ValueError(
+            f"packed width mismatch: database W={db.prototypes.shape[1]}, "
+            f"addition W={addition.prototypes.shape[1]} (different HD "
+            f"space/dim -- deltas must be built with the database's config)")
+    clash = set(db.species_names) & set(addition.species_names)
+    if clash:
+        raise ValueError(
+            f"species already present: {sorted(clash)} (remove them first "
+            f"to replace, or rename the additions)")
+    add = addition.to(db.prototypes.device)
+    return RefDB(
+        prototypes=torch.cat([db.prototypes, add.prototypes]),
+        proto_species=torch.cat(
+            [db.proto_species, add.proto_species + db.num_species]),
+        genome_lengths=torch.cat([db.genome_lengths, add.genome_lengths]),
+        num_species=db.num_species + addition.num_species,
+        species_names=db.species_names + addition.species_names,
+    )
+
+
+def apply_delta(db: RefDB, *, add: RefDB | None = None,
+                remove=()) -> RefDB:
+    """One incremental update: remove species, then append new ones.
+
+    Remove-before-add makes an in-place genome refresh a single delta
+    (``remove=["x"], add=<rebuilt x>``).
+    """
+    out = remove_species(db, remove) if remove else db
+    if add is not None:
+        out = add_species(out, add)
+    return out
 
 
 def agreement_matmul(queries: torch.Tensor, prototypes: torch.Tensor,

@@ -30,6 +30,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -108,6 +109,16 @@ def build_all(names=SOURCES) -> dict[str, ctypes.CDLL]:
         for name in missing:
             _libs[name] = ctypes.CDLL(str(_lib_path(name, compiler)))
         return {n: _libs[n] for n in names}
+
+
+def count_launch(fn) -> None:
+    """Add one to a wrapper's launch counter ``fn.launches``.
+
+    Under a lock: serving pumps launch kernels from several threads, and
+    ``+=`` on an attribute is not atomic across them.
+    """
+    with _count_lock:
+        fn.launches += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

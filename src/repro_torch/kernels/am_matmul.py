@@ -116,7 +116,7 @@ def am_matmul(q_pm: torch.Tensor, p_pm: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"am_matmul: kernel launch failed with CUDA "
                            f"error {err} (B={b}, S={s}, D={k})")
-    am_matmul.launches += 1
+    _build.count_launch(am_matmul)
     return out
 
 
@@ -166,7 +166,7 @@ def am_matmul_packed(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"am_matmul_packed: kernel launch failed with "
                            f"CUDA error {err} (B={b}, S={s}, W={w})")
-    am_matmul_packed.launches += 1
+    _build.count_launch(am_matmul_packed)
     return out
 
 

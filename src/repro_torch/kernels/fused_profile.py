@@ -116,6 +116,15 @@ def _lib():
     return lib
 
 
+def max_active_clusters(bb: int, cluster: int, read_len: int, n: int,
+                        w: int) -> int:
+    """Clusters of this tiling the card holds at once
+    (``fused_profile_max_active_clusters`` in C; 0 or -1 when the tiling
+    cannot launch).  Needs a card: it asks the CUDA occupancy API."""
+    return _lib().fused_profile_max_active_clusters(bb, cluster, read_len,
+                                                    n, w)
+
+
 def _check(tokens, lengths, im_rolled, tie, prototypes) -> None:
     dev = tokens.device
     for name, t, nd in (("tokens", tokens, 2), ("lengths", lengths, 1),
@@ -196,7 +205,7 @@ def fused_profile(tokens: torch.Tensor, lengths: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_profile: kernel launch failed with CUDA "
                            f"error {err}")
-    fused_profile.launches += 1
+    _build.count_launch(fused_profile)
     return out
 
 

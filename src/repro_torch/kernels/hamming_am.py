@@ -81,7 +81,7 @@ def hamming_am(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"hamming_am: kernel launch failed with CUDA "
                            f"error {err} (B={b}, S={s}, W={w})")
-    hamming_am.launches += 1
+    _build.count_launch(hamming_am)
     return out
 
 

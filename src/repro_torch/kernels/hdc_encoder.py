@@ -168,7 +168,7 @@ def hdc_encode(tokens: torch.Tensor, lengths: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"hdc_encode: kernel launch failed with CUDA "
                            f"error {err} (B={b}, L={length}, W={w})")
-    hdc_encode.launches += 1
+    _build.count_launch(hdc_encode)
     return out
 
 

@@ -7,8 +7,9 @@ arrays -- ``prototypes`` as ``uint32``, ``proto_species`` and
 ``genome_lengths`` as ``int32`` -- plus a JSON *manifest* under the
 ``manifest`` key (``magic``, ``format_version``, ``refdb_fingerprint``,
 ``genomes_digest``, ``num_species``, ``num_prototypes``, ``dim_words``,
-``species_names``, ``genome_lengths`` and the content-determining config
-fields the session passes).
+``species_names``, ``genome_lengths``, the content-determining config
+fields the session passes and, on the serving registry's snapshots,
+``version`` / ``parent_version`` / ``delta``).
 
 Writes are atomic (a same-directory temp file published with
 ``os.replace``).  Loads are tolerant: any undecodable entry -- a legacy
@@ -40,13 +41,27 @@ _MAGIC = "demeter-refdb"
 
 def save(path: str | pathlib.Path, db: RefDB, *,
          refdb_fingerprint: str = "", genomes_digest: str = "",
-         config_fields: dict | None = None) -> pathlib.Path:
-    """Atomically write ``db`` (npz arrays + embedded JSON manifest)."""
+         config_fields: dict | None = None,
+         version: int | None = None, parent_version: int | None = None,
+         delta: dict | None = None) -> pathlib.Path:
+    """Atomically write ``db`` (npz arrays + embedded JSON manifest).
+
+    ``version`` / ``parent_version`` / ``delta`` are the serving
+    registry's live-update provenance (:mod:`repro_torch.serve.registry`);
+    they are left out of the manifest when None, as in ``repro``.
+    """
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     genome_lengths = db.genome_lengths.cpu().numpy().astype(np.int32)
+    provenance = {
+        k: v for k, v in (("version", version),
+                          ("parent_version", parent_version),
+                          ("delta", delta))
+        if v is not None
+    }
     manifest = {
         **(config_fields or {}),
+        **provenance,
         "magic": _MAGIC,
         "format_version": FORMAT_VERSION,
         "refdb_fingerprint": refdb_fingerprint,

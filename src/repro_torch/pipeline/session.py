@@ -9,8 +9,8 @@ backend on one device and drives the whole pipeline::
     report = session.profile(FastqSource("sample.fastq"))
 
 ``device=None`` means ``cuda``; without a GPU the session raises unless
-the caller passes ``device="cpu"``.  The ``metrics=`` hook and the
-noise-aware RefDB refinement of ``repro`` are not ported yet.
+the caller passes ``device="cpu"``.  The noise-aware RefDB refinement of
+``repro`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,11 +18,13 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import pathlib
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import classifier
 from repro_torch.core.assoc_memory import RefDB, RefDBBuilder
 from repro_torch.pipeline import refdb_store
@@ -54,12 +56,21 @@ class ProfilingSession:
 
     def __init__(self, config: ProfilerConfig, *,
                  backend: Backend | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 metrics: obs.MetricsRegistry | None = None):
         """Args:
           backend: pre-resolved backend to use instead of resolving
             ``config.backend``; the session then runs on its device.
+            Sessions sharing one backend share its item memory and its
+            autotuned tiles -- the serving router runs one session per
+            RefDB version on a single shared backend.
           device: where the backend (when resolved here) and the RefDB
             live; ``None`` means ``cuda``.
+          metrics: observability registry; None resolves the process
+            global (:func:`repro_torch.obs.metrics`, the no-op registry
+            unless observability was enabled).  Recording is host-side
+            only and never waits for the card, so metrics cannot perturb
+            results.
         """
         self.config = config
         self.space = config.space
@@ -67,6 +78,18 @@ class ProfilingSession:
             backend if backend is not None
             else resolve_backend(config.backend, config, device=device))
         self.device = self.backend.device
+        self._obs = obs.resolve_metrics(metrics)
+        self._m_batch_time = self._obs.histogram(
+            "session_classify_batch_seconds",
+            "classify_batch dispatch wall time per dispatch path "
+            "(async backends: time to hand off, not to complete)",
+            unit="s")
+        self._m_batches = self._obs.counter(
+            "session_classify_batches_total",
+            "classify_batch calls per backend and dispatch path")
+        self._m_transfers = self._obs.counter(
+            "session_host_transfers_total",
+            "device->host array transfers on the query path")
         self.refdb: RefDB | None = None
         self.refdb_loaded_from_cache = False
         self.refdb_cache_file: pathlib.Path | None = None
@@ -165,20 +188,31 @@ class ProfilingSession:
         toks, lens = self._to_device(tokens, lengths)
         fused_full = getattr(self.backend, "tokens_species_scores", None)
         fused = getattr(self.backend, "tokens_agreement", None)
+        recording = self._obs.enabled
+        t0 = time.perf_counter() if recording else 0.0
         if fused_full is not None:
+            path = "tokens_species_scores"
             scores = fused_full(toks, lens, db.prototypes,
                                 db.proto_species, db.num_species)
             res = classifier.from_scores(scores, self.space.threshold_bits)
             q = None
         elif fused is not None:
+            path = "tokens_agreement"
             agree = fused(toks, lens, db.prototypes)
             res = classifier.from_agreement(
                 agree, db.proto_species, db.num_species,
                 self.space.threshold_bits)
             q = None
         else:
+            path = "encode_classify"
             q = self.backend.encode(toks, lens)
             res = self.classify_queries(q, db)
+        if recording:
+            # Host clock only, with no synchronize: the dispatch time, as
+            # repro records it; the kernels' work is untouched.
+            labels = {"backend": self.config.backend, "path": path}
+            self._m_batch_time.observe(time.perf_counter() - t0, **labels)
+            self._m_batches.inc(1, **labels)
         n = len(toks) if num_valid is None else num_valid
         return BatchResult(index=index, queries=q, classification=res,
                            num_valid=n)
@@ -198,9 +232,20 @@ class ProfilingSession:
             n = res.num_valid
             acc.add(res.classification.hits[:n].cpu().numpy(),
                     res.classification.category[:n].cpu().numpy())
+            self.note_host_transfers(2)       # hits + category to host
             if on_batch is not None:
                 on_batch(res)
         return acc.finalize(db.genome_lengths.cpu().numpy(), db.species_names)
+
+    def note_host_transfers(self, n: int) -> None:
+        """Count ``n`` device->host transfers against this session.
+
+        Called wherever classification outputs cross to numpy -- here in
+        :meth:`profile` and by the serving demux
+        (:meth:`repro_torch.serve.profiler_service.ProfilingService.step`).
+        """
+        if self._obs.enabled:
+            self._m_transfers.inc(n, backend=self.config.backend)
 
     # ----------------------------------------------------------------------
     def _to_device(self, tokens, lengths) -> tuple[torch.Tensor, torch.Tensor]:

@@ -32,7 +32,12 @@ def test_no_jax_or_repro_imports_in_the_port():
     assert len(files) > 20
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"eval.py", "launch/profile_run.py",
-            "kernels/am_matmul.py", "kernels/hamming_am.py"} <= names
+            "kernels/am_matmul.py", "kernels/hamming_am.py",
+            "kernels/autotune.py", "launch/serve_profiler.py",
+            "obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+            "serve/__init__.py", "serve/scheduler.py",
+            "serve/profiler_service.py", "serve/registry.py",
+            "serve/router.py"} <= names
     bad = [(str(f.relative_to(PKG)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -48,7 +53,9 @@ def test_chip_smoke_imports_no_jax_or_repro():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.pipeline, repro_torch.convert,"
             " repro_torch.kernels.ops, repro_torch.eval,"
-            " repro_torch.launch.profile_run; "
+            " repro_torch.launch.profile_run, repro_torch.obs,"
+            " repro_torch.serve, repro_torch.kernels.autotune,"
+            " repro_torch.launch.serve_profiler; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = {**os.environ, "PYTHONPATH": str(PKG.parent)}
