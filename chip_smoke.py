@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --sweep    # also time other fused-kernel tilings
 
+(``--shard-worker PATH`` is phase 9's two-rank child: the script starts it
+itself, twice, with the rank in the environment.)
+
 Phases (each prints its own lines; any failure exits non-zero and prints
 no result line):
 
@@ -75,6 +78,37 @@ no result line):
              ``cuda_packed`` (two tenants, two workers) and ``cuda_matmul``
              in child processes.  Counters are set to 0 just before each
              of the create, service and router runs and read just after.
+7. alphabet  alphabets above 4 (the encode kernels' wide path): at
+             D = 40,960, n = 16 and A = 5, 8, 20, the encoder on 256
+             windows of 8,192 symbols and the fused kernel on 256 reads of
+             150 against 9,780 random prototypes (prototype 0 = read 0's
+             vector, the last = read 1's complement), and at A = 300 with
+             16 windows / 32 reads; each bit-exact against its plain
+             version, its ms a launch beside the A = 4 times of phase 3,
+             and where its tables sat (shared memory or L2).  Then a
+             ``cuda_fused`` session at A = 20 (4 species x 200 kbp of
+             symbols in [0, 20) from a seed, 2,048 reads of 150) against a
+             torch ``reference`` session: equal prototypes and reports.
+8. fleet     phase 3's config and genomes behind a source
+             ``RefDBRegistry`` (its create counted: 40 encoder launches)
+             and a ``FleetController`` of 3 hosts on the one card: 2
+             tenants x 8 requests of 2,048 of phase 3's reads, the busiest
+             host killed after a third of the submissions (its live
+             requests rerouted), a one-genome add-species delta and a
+             two-phase ``fleet_swap`` after two thirds, ``wait_retired``;
+             every report (rerouted ones included) equal to a sequential
+             ``cuda_fused`` profile on its admitted version, reads/s, p50 /
+             p99, the launches (the encoder only for the delta: replication
+             copies snapshots) and the ``host`` label on every per-host
+             series of the merged metrics; then ``serve_fleet --smoke
+             --check`` in a child process.
+9. shard     the ``sharded`` backend: at world size 1 (NCCL, this process)
+             over bases ``cuda_fused``, ``cuda_packed`` and
+             ``cuda_matmul``, and at world size 2 on the one card (gloo
+             over CUDA tensors, two ranks started as child processes, base
+             ``cuda_fused``, each building the RefDB), phase 3's reads:
+             every report equal to phase 3's, with the MB each rank holds
+             and the profile time.
 
 The last lines are one JSON object per kernel list and
 ``{"ok": true, "device": {...}}``.
@@ -614,6 +648,403 @@ def serving_phase(*, config, sample, db, session, main_report, card,
     run_serve_cli(["--backend", "cuda_matmul"])
 
 
+def alphabet_phase(*, space, rows, card, zero_counts, read_counts) -> None:
+    """Phase 7: alphabets above 4 through both encode kernels, full width."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import item_memory
+    from repro_torch.kernels import fused_profile, hdc_encoder
+    from repro_torch.pipeline import (ArraySource, ProfilerConfig,
+                                      ProfilingSession)
+
+    dev = torch.device("cuda")
+    n, w, dim = space.ngram, space.num_words, space.dim
+    a4 = {r["name"]: r["ms"] for r in rows}
+    rng = np.random.default_rng(2207)
+    protos = convert.words_to_tensor(rng.integers(
+        0, 2 ** 32, (9780, w), dtype=np.uint32), dev)
+    bb, cl = fused_profile.DEFAULT_BB, fused_profile.DEFAULT_CLUSTER
+    for alphabet, b_win, b_read in ((5, 256, 256), (8, 256, 256),
+                                    (20, 256, 256), (300, 16, 32)):
+        sp = dataclasses.replace(space, alphabet_size=alphabet)
+        imr = item_memory.rolled(item_memory.make_item_memory(
+            sp, device=dev), n).contiguous()
+        tie = item_memory.make_tie_break(sp, device=dev)
+        wins = torch.from_numpy(rng.integers(
+            0, alphabet, (b_win, 8192)).astype(np.int32)).to(dev)
+        wl = np.full(b_win, 8192, np.int32)
+        wl[-2:] = [8191, 5000]                 # m = 8176 even; a short one
+        wlen = torch.from_numpy(wl).to(dev)
+        expect_equal(f"hdc_encoder A={alphabet}",
+                     hdc_encoder.hdc_encode(wins, wlen, imr, tie),
+                     hdc_encoder.hdc_encode_plain(wins, wlen, imr, tie))
+        enc_ms = cuda_time_ms(
+            lambda: hdc_encoder.hdc_encode(wins, wlen, imr, tie), reps=5)
+        starts = rng.integers(0, 8192 - 150, b_read).tolist()
+        qt = torch.stack([wins[i % b_win, s0:s0 + 150]
+                          for i, s0 in enumerate(starts)]).contiguous()
+        ql = np.full(b_read, 150, np.int32)
+        ql[2:5] = [0, 10, 151 - 2]             # empty, m = 0, even m
+        qlen = torch.from_numpy(ql).to(dev)
+        pair = hdc_encoder.hdc_encode_plain(qt[:2], qlen[:2], imr, tie)
+        protos[0], protos[-1] = pair[0], ~pair[1]
+        got = fused_profile.fused_profile(qt, qlen, imr, tie, protos,
+                                          dim=dim, bb=bb, cluster=cl)
+        expect_equal(f"fused_profile A={alphabet}", got,
+                     fused_profile.fused_profile_plain(qt, qlen, imr, tie,
+                                                       protos, dim=dim))
+        corners = (int(got[0, 0]), int(got[1, -1]))
+        if corners != (dim, 0):
+            fail(f"fused_profile A={alphabet}: equal / complement rows give "
+                 f"{corners}, want ({dim}, 0)")
+        f_ms = cuda_time_ms(lambda: fused_profile.fused_profile(
+            qt, qlen, imr, tie, protos, dim=dim, bb=bb, cluster=cl), reps=10)
+        where_e = ("shared memory" if hdc_encoder.shared_tables(8192, n,
+                                                                alphabet)
+                   else "L2 (global tables)")
+        where_f = ("shared memory" if fused_profile.shared_tables(
+            bb, cl, 150, n, alphabet, w) else "L2 (global tables)")
+        say(f"[alphabet] A={alphabet}: hdc_encoder {b_win} x 8192 == plain, "
+            f"{enc_ms:.3f} ms a launch (A = 4, 256 windows: "
+            f"{a4['hdc_encoder']:.3f} ms), tables in {where_e} | "
+            f"fused_profile {b_read} x 150 vs 9780 at bb {bb} / cluster "
+            f"{cl} == plain (equal row {corners[0]}, complement row "
+            f"{corners[1]}), {f_ms:.3f} ms a launch (A = 4, 256 reads: "
+            f"{a4['fused_profile']:.3f} ms), tables in {where_f} | {card}")
+
+    # A whole session at A = 20 against the torch reference on the card.
+    sp20 = dataclasses.replace(space, alphabet_size=20)
+    rng = np.random.default_rng(20)
+    genomes = {f"species_{i:02d}": rng.integers(0, 20, 200_000).astype(
+        np.int32) for i in range(4)}
+    names = list(genomes)
+    toks = np.zeros((2048, 150), np.int32)
+    for r in range(len(toks)):
+        g = genomes[names[r % 4]]
+        s0 = int(rng.integers(0, len(g) - 150))
+        toks[r] = g[s0:s0 + 150]
+    lens = np.full(len(toks), 150, np.int32)
+    reports, dbs = {}, {}
+    for backend in ("cuda_fused", "reference"):
+        sess = ProfilingSession(ProfilerConfig(
+            space=sp20, window=8192, batch_size=256, backend=backend))
+        zero_counts()
+        t0 = time.perf_counter()
+        dbs[backend] = sess.build_refdb(genomes)
+        reports[backend] = sess.profile(ArraySource(toks, lens)).to_dict()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs = read_counts()
+        if backend == "cuda_fused" and min(runs["hdc_encoder"],
+                                           runs["fused_profile"]) < 1:
+            fail(f"the A = 20 cuda_fused session skipped a kernel: {runs}")
+        say(f"[alphabet] A=20 {backend} session: build + profile "
+            f"{secs:.3f} s | launches {json.dumps(runs)}")
+    if not torch.equal(dbs["cuda_fused"].prototypes,
+                       dbs["reference"].prototypes):
+        fail("A = 20: cuda_fused prototypes differ from the reference's")
+    rep = reports["reference"]
+    if reports["cuda_fused"] != rep:
+        fail("A = 20: the cuda_fused report differs from the reference's")
+    if rep["unmapped_reads"] >= rep["total_reads"]:
+        fail("A = 20: no read mapped")
+    say(f"[alphabet] A=20 cuda_fused == reference on the card: "
+        f"{dbs['reference'].num_prototypes} prototypes, "
+        f"{rep['total_reads']} reads, unmapped {rep['unmapped_reads']}, "
+        f"multi {rep['multi_reads']}")
+
+
+def fleet_phase(*, config, sample, db, card, zero_counts,
+                read_counts) -> None:
+    """Phase 8: a fleet of 3 hosts on the one card, full width."""
+    import torch
+
+    from repro_torch.core.assoc_memory import window_tokens
+    from repro_torch.pipeline import ArraySource, ProfilingSession
+    from repro_torch.serve import FleetController, RefDBRegistry
+    from repro_torch.serve.fleet import HostState
+
+    def encoder_batches(genomes) -> int:
+        return sum(-(-len(window_tokens(g, config.window,
+                                        config.effective_stride)[0])
+                     // config.batch_size) for g in genomes.values())
+
+    source = RefDBRegistry(root=None)
+    zero_counts()
+    t0 = time.perf_counter()
+    snap1 = source.create("food", sample.genomes, config)
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    runs = read_counts()
+    if runs["hdc_encoder"] != encoder_batches(sample.genomes) \
+            or runs["fused_profile"] != 0:
+        fail(f"source registry create launched {runs}")
+    if not torch.equal(snap1.db.prototypes, db.prototypes):
+        fail("source registry create: prototypes differ from phase 3's")
+    say(f"[fleet] source registry create food:v1 {create_s:.3f} s | "
+        f"launches {json.dumps(runs)} | prototypes == phase 3's")
+
+    per_request, total = 2048, 16
+    requests = [ArraySource(sample.tokens[i * per_request:
+                                          (i + 1) * per_request],
+                            sample.lengths[i * per_request:
+                                           (i + 1) * per_request])
+                for i in range(total)]
+    rng = np.random.default_rng(sample.spec.seed + 202)
+    delta = {"species_fleet": rng.integers(0, 4, GENOME_LEN, dtype=np.int32)}
+    fleet = FleetController(source, hosts=3)
+    for tenant in ("tenant0", "tenant1"):
+        fleet.add_tenant(tenant, "food", max_active=2, max_queue=total)
+    handles, killed, rerouted, snap2 = [], None, [], None
+    zero_counts()
+    t0 = time.perf_counter()
+    with fleet:
+        for i, src in enumerate(requests):
+            if i == total // 3:                # kill the busiest host
+                live: dict[str, int] = {}
+                for h in handles:
+                    if not h.done:
+                        live[h.host] = live.get(h.host, 0) + 1
+                healthy = [hid for hid in live
+                           if fleet.host(hid).state is HostState.HEALTHY]
+                killed = (max(healthy, key=live.get) if healthy
+                          else fleet.healthy_hosts()[0])
+                rerouted = fleet.kill_host(killed)
+                say(f"[fleet] killed {killed} after {i} submissions (live "
+                    f"{json.dumps(live)}); rerouted {len(rerouted)}: "
+                    f"{' '.join(rerouted) or '(none in flight)'}")
+            if i == 2 * total // 3:            # delta + two-phase swap
+                snap2 = source.apply_delta("food", add=delta)
+                fleet.fleet_swap("food", version=snap2.version)
+                say(f"[fleet] fleet swap v1 -> v{snap2.version} after {i} "
+                    f"submissions ({len(fleet.healthy_hosts())} healthy "
+                    f"hosts)")
+            handles.append(fleet.submit(src, tenant=f"tenant{i % 2}",
+                                        request_id=f"req-{i}"))
+        reports = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t_ret = time.perf_counter()
+        fleet.wait_retired("food", 1, timeout=300)
+        retire_s = time.perf_counter() - t_ret
+        merged = fleet.metrics_snapshot().snapshot()
+    counts = read_counts()
+    fleet.close()
+    sessions, bad = {}, []
+    for h, src, rep in zip(handles, requests, reports):
+        if h.version not in sessions:
+            sess = ProfilingSession(config)
+            sess.adopt_refdb(source.snapshot("food", h.version).db)
+            sessions[h.version] = sess
+        if rep.to_dict() != sessions[h.version].profile(src).to_dict():
+            bad.append(h.request_id)
+    if bad:
+        fail(f"fleet reports differ from sequential cuda_fused profiles on "
+             f"their admitted versions: {bad}")
+    delta_batches = encoder_batches(delta)
+    if counts["hdc_encoder"] != delta_batches or counts["fused_profile"] < 1:
+        fail(f"fleet launched {counts}, want hdc_encoder {delta_batches} "
+             f"(the delta alone: replication copies snapshots) and "
+             f"fused_profile")
+    unlabeled = [name for kind in ("counters", "gauges", "histograms")
+                 for name, m in merged.get(kind, {}).items()
+                 if not name.startswith("fleet_")
+                 for series in m["series"] if "host" not in series["labels"]]
+    if unlabeled:
+        fail(f"merged fleet metrics: series without a host label in "
+             f"{sorted(set(unlabeled))}")
+    n_series = sum(len(m["series"]) for kind in ("counters", "gauges",
+                                                 "histograms")
+                   for name, m in merged.get(kind, {}).items()
+                   if not name.startswith("fleet_"))
+    lat = sorted(h._attempts[-1][1].latency_s for h in handles)
+    reads = per_request * total
+    by_host: dict[str, int] = {}
+    for h in handles:
+        by_host[h.host] = by_host.get(h.host, 0) + 1
+    say(f"[fleet] 3 hosts, 2 tenants x 8 requests of {per_request} reads: "
+        f"{reads} reads in {wall:.3f} s | {reads / wall:.0f} reads/s | "
+        f"latency p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 "
+        f"{np.percentile(lat, 99) * 1e3:.1f} ms | reroutes "
+        f"{sum(h.rerouted for h in handles)} | placement "
+        f"{json.dumps(dict(sorted(by_host.items())))} | versions "
+        f"{sorted({h.version for h in handles})} | retire "
+        f"{retire_s * 1e3:.1f} ms | launches {json.dumps(counts)} | {card}")
+    say(f"[fleet] all {total} reports (rerouted ones included) == "
+        f"sequential cuda_fused profiles on their admitted versions; "
+        f"encoder launched {delta_batches} times (the delta alone); "
+        f"{n_series} per-host metric series, each with a host label")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_fleet", "--smoke",
+           "--check", "--backend", "cuda_fused"]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"serve_fleet --smoke --check exited {out.returncode}:\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    lines = [ln.strip() for ln in out.stdout.splitlines()
+             if ln.startswith(("fleet:", "check OK", "killed"))]
+    say(f"[fleet] serve_fleet --smoke --check --backend cuda_fused: "
+        f"{' | '.join(lines)} ({time.perf_counter() - t0:.1f} s with "
+        f"start-up)")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def shard_phase(*, config, sample, db, main_report, card, out_dir,
+                zero_counts, read_counts) -> None:
+    """Phase 9: the sharded backend at world sizes 1 and 2."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.pipeline import ProfilingSession, per_device_bytes
+
+    kernels = {"cuda_fused": "fused_profile", "cuda_packed": "hamming_am",
+               "cuda_matmul": "am_matmul_packed"}
+    first = " (the group's first collective included)"
+    for i, (base, kernel) in enumerate(kernels.items()):
+        sess = ProfilingSession(dataclasses.replace(
+            config, backend="sharded", backend_options={"base": base}))
+        sess.adopt_refdb(db)
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = sess.profile(sample)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs = read_counts()
+        if rep.to_dict() != main_report:
+            fail(f"sharded (world size 1, base {base}) report differs from "
+                 f"phase 3's")
+        if runs[kernel] < 1:
+            fail(f"sharded base {base} did not launch {kernel}: {runs}")
+        med, warm = warm_profile(sess, sample, sess.refdb, main_report)
+        say(f"[shard] world size 1 ({sess.backend.mesh.backend}), base "
+            f"{base}: profile {secs:.3f} s cold{first if i == 0 else ''}, "
+            f"{warm_line(med, warm)} | "
+            f"{per_device_bytes(db, 1) / 1e6:.1f} MB per device | launches "
+            f"{json.dumps(runs)} | report == phase 3's | {card}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+    world = 2
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": str(world)}
+    paths = [os.path.join(out_dir, f"shard_rank{r}.json")
+             for r in range(world)]
+    for path in paths:
+        if os.path.exists(path):
+            os.unlink(path)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-worker",
+         paths[r]], cwd=ROOT, env={**env, "RANK": str(r),
+                                   "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"shard rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    outs = []
+    for path in paths:
+        with open(path) as f:
+            outs.append(json.load(f))
+    for out in outs:
+        if out["report"] != main_report:
+            fail(f"sharded rank {out['rank']} of {world} report differs from "
+                 f"phase 3's")
+    say(f"[shard] world size {world} on the one card ({outs[0]['backend']} "
+        f"over CUDA tensors), base cuda_fused: "
+        + " | ".join(f"rank {o['rank']}: {o['rows']} rows, {o['mb']:.1f} MB, "
+                     f"build {o['build_s']:.3f} s, profile "
+                     f"{o['profile_s']:.3f} s cold, warm median "
+                     f"{o['warm_s']:.3f} s of {WARM_RUNS}, launches "
+                     f"{json.dumps(o['launches'])}" for o in outs)
+        + f" | both reports == phase 3's ({time.perf_counter() - t0:.1f} s "
+        f"with start-up) | {card}")
+
+
+def shard_worker(out_path: str) -> int:
+    """One rank of phase 9's two-rank run (rank and world size from the
+    environment): builds phase 3's RefDB through ``sharded`` over
+    ``cuda_fused``, profiles phase 3's reads, writes its result."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.hd_space import HDSpace
+    from repro_torch.genomics import synth
+    from repro_torch.kernels import am_matmul, fused_profile, hamming_am
+    from repro_torch.kernels import hdc_encoder
+    from repro_torch.pipeline import (ProfilerConfig, ProfilingSession,
+                                      SyntheticSource)
+
+    counters = {"hdc_encoder": hdc_encoder.hdc_encode,
+                "fused_profile": fused_profile.fused_profile,
+                "hamming_am": hamming_am.hamming_am,
+                "am_matmul_packed": am_matmul.am_matmul_packed}
+    sample = SyntheticSource(synth.CommunitySpec(
+        num_species=NUM_SPECIES, genome_len=GENOME_LEN, seed=7),
+        num_reads=NUM_READS)
+    world = int(os.environ["WORLD_SIZE"])
+    sess = ProfilingSession(ProfilerConfig(
+        space=HDSpace(), window=8192, batch_size=256, backend="sharded",
+        backend_options={"base": "cuda_fused", "shards": world}))
+    t0 = time.perf_counter()
+    db = sess.build_refdb(sample.genomes)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    rep = sess.profile(sample)
+    torch.cuda.synchronize()
+    profile_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    warm = []
+    for _ in range(WARM_RUNS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        again = sess.profile(sample)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        if again.to_dict() != rep.to_dict():
+            return 1
+    out = {"rank": sess.backend.mesh.rank, "backend": sess.backend.mesh.backend,
+           "rows": db.num_prototypes, "mb": db.memory_bytes() / 1e6,
+           "build_s": build_s, "profile_s": profile_s,
+           "warm_s": statistics.median(warm), "launches": launches,
+           "report": rep.to_dict()}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     sweep = "--sweep" in sys.argv[1:]
     import torch
@@ -1083,6 +1514,25 @@ def main() -> int:
                   zero_counts=zero_counts, read_counts=read_counts)
     say(f"[serve] serving phase {time.perf_counter() - t0:.1f} s")
 
+    # -- 7. alphabets above 4 ----------------------------------------------
+    t0 = time.perf_counter()
+    alphabet_phase(space=space, rows=rows, card=card,
+                   zero_counts=zero_counts, read_counts=read_counts)
+    say(f"[alphabet] alphabet phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 8. the serving fleet -------------------------------------------------
+    t0 = time.perf_counter()
+    fleet_phase(config=config, sample=sample, db=db, card=card,
+                zero_counts=zero_counts, read_counts=read_counts)
+    say(f"[fleet] fleet phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 9. the sharded backend ---------------------------------------------
+    t0 = time.perf_counter()
+    shard_phase(config=config, sample=sample, db=db, main_report=main_report,
+                card=card, out_dir=out_dir, zero_counts=zero_counts,
+                read_counts=read_counts)
+    say(f"[shard] shard phase {time.perf_counter() - t0:.1f} s")
+
     say(card)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
@@ -1092,4 +1542,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-worker"]:
+        sys.exit(shard_worker(sys.argv[2]))
     sys.exit(main())

@@ -71,20 +71,24 @@ class RefDBBuilder:
     on ``device`` (the last batch of a genome is partial) and keeps only
     the finished prototype rows.  ``encode_fn`` is
     ``(tokens, lengths) -> (B, W)`` on ``device`` tensors; it defaults to
-    the reference encoder.
+    the reference encoder over an item memory drawn in the
+    ``partitionable`` threefry mode.
     """
 
     def __init__(self, space: HDSpace, *, window: int = 8192,
                  stride: int | None = None, batch_size: int = 64,
-                 encode_fn=None, device: str | torch.device | None = None):
+                 encode_fn=None, device: str | torch.device | None = None,
+                 partitionable: bool = True):
         self.space = space
         self.window = window
         self.stride = stride or window
         self.batch_size = batch_size
         self.device = resolve_device(device)
         if encode_fn is None:
-            im = item_memory.make_item_memory(space, device=self.device)
-            tie = item_memory.make_tie_break(space, device=self.device)
+            im = item_memory.make_item_memory(space, device=self.device,
+                                              partitionable=partitionable)
+            tie = item_memory.make_tie_break(space, device=self.device,
+                                             partitionable=partitionable)
 
             def encode_fn(t, l):
                 return encoder.encode(t, l, im, tie, space)
@@ -133,11 +137,12 @@ class RefDBBuilder:
 def build_refdb(genomes: dict[str, np.ndarray], space: HDSpace, *,
                 window: int = 8192, stride: int | None = None,
                 batch_size: int = 64, encode_fn=None,
-                device: str | torch.device | None = None) -> RefDB:
+                device: str | torch.device | None = None,
+                partitionable: bool = True) -> RefDB:
     """Demeter step 2: encode every reference genome into the AM."""
     builder = RefDBBuilder(space, window=window, stride=stride,
                            batch_size=batch_size, encode_fn=encode_fn,
-                           device=device)
+                           device=device, partitionable=partitionable)
     for name, toks in genomes.items():
         builder.add_genome(name, toks)
     return builder.finish()

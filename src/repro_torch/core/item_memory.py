@@ -6,7 +6,8 @@ seeds as ``repro`` -- ``jax.random.key(space.seed)`` for the IM and
 ``space.seed ^ 0x7EB4EA4`` for the tie-break vector -- so both packages
 hold bit-identical item memories.  ``partitionable`` selects the JAX
 ``jax_threefry_partitionable`` mode to reproduce (``None``: the default,
-:data:`threefry.PARTITIONABLE`).
+:data:`threefry.PARTITIONABLE`); the pipeline passes its config's
+``threefry_partitionable``.
 """
 
 from __future__ import annotations

@@ -25,7 +25,8 @@ Which words ``random_bits`` yields depends on JAX's
 * original: counters ``0 .. size-1`` are split in two halves that form
   the pairs, and the word sequence is ``concat(out0, out1)``.
 
-The partitionable mode is the default, as in current JAX.
+The partitionable mode is the default, as in current JAX; a session
+takes its mode from ``ProfilerConfig.threefry_partitionable``.
 """
 
 from __future__ import annotations

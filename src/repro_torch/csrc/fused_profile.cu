@@ -49,6 +49,10 @@
 // row parity (word w of row r at w ^ 4 (r & 1)), so the 16-byte
 // fragment loads of a quarter warp hit distinct banks.
 //
+// Alphabets above 4 take fused_profile_wide_kernel, whose phase 1 is
+// hdc_common.cuh's wide encode; phases 2 and 3 (share_and_search) are the
+// same code, and the 2-bit kernel is unchanged by it.
+//
 // Inert padding: words past W of the encoded rows are zero, and the
 // prototype rows are padded with zero words to a multiple of 32 words, so
 // pad words add nothing to popc(a & b); rows past B are never written, so
@@ -104,6 +108,37 @@ __host__ __device__ inline Layout layout(int rows, int cluster, int L, int n,
   s.toks = s.edge + demeter::round16(s.runs * n * 4);
   s.pairs = s.toks + static_cast<long long>(rows) * s.tw;
   const long long enc = s.pairs + static_cast<long long>(rows) * s.pw;
+  const long long ring =
+      s.scratch + static_cast<long long>(kWarps) * ring_stages(rows / 16) *
+                      kStageWords;
+  s.total = (enc > ring ? enc : ring) * 4;
+  return s;
+}
+
+// The layout of the wide path (5 <= A <= 65,536): the same tile, popcounts
+// and rings; an encode scratch of the F / G tables of the block's runs and
+// their (n, A) edge columns (only when shared_tables: else they are read
+// from global memory) and the tile's 16-bit symbols, with no pair ids.
+// The span is rounded to 4 words so every block's first word, and hence a
+// lane's 16-byte load from the global tables, is aligned.
+__host__ __device__ inline Layout wide_layout(int rows, int cluster, int L,
+                                              int n, int A, int W,
+                                              bool shared_tables) {
+  Layout s;
+  s.qs = steps_of(W) * kStepWords;
+  s.span = demeter::round16((W + cluster - 1) / cluster);
+  s.runs = (s.span + demeter::kRunWords - 1) / demeter::kRunWords;
+  s.cols = s.runs * demeter::kRunWords;
+  s.tw = demeter::wide_tok_words(L);
+  s.pw = 0;
+  s.q = 0;
+  s.ra = s.q + static_cast<long long>(rows) * s.qs;
+  s.scratch = s.ra + demeter::round16(rows);
+  s.tbl = s.scratch;
+  s.edge = s.tbl + (shared_tables ? 2LL * A * s.cols : 0);
+  s.toks = s.edge + (shared_tables ? demeter::round16(s.runs * n * A) : 0);
+  s.pairs = s.toks + static_cast<long long>(rows) * s.tw;
+  const long long enc = s.pairs;
   const long long ring =
       s.scratch + static_cast<long long>(kWarps) * ring_stages(rows / 16) *
                       kStageWords;
@@ -209,6 +244,60 @@ __device__ __forceinline__ void search_group(
   }
 }
 
+// Phases 2 and 3 of the fused kernel, shared by its 2-bit and wide
+// encodes: gather the other ranks' words of the tile, take its row
+// popcounts, then search this block's share of the prototypes.
+template <int MT>
+__device__ __forceinline__ void share_and_search(
+    cg::cluster_group& cluster, const Layout& lay, uint32_t* smem,
+    uint32_t* q, int32_t* ra, const uint32_t* __restrict__ protos,
+    const int32_t* __restrict__ pc, int32_t* __restrict__ out, int r0,
+    int rend, int S, int W, int Wp, int dim, int rank, int C, int tid,
+    int warp, int lane) {
+  constexpr int BB = 16 * MT;  // reads of the tile
+  // -- 2. gather the other ranks' words through distributed smem ----------
+  cluster.sync();
+  for (int other = 1; other < C; ++other) {
+    const int src = (rank + other) % C;
+    const uint32_t* remote = cluster.map_shared_rank(q, src);
+    const int s0 = src * lay.span;
+    const int cnt = max(min(lay.span, W - s0), 0);
+    for (int k = tid; k < BB * cnt; k += kThreads) {
+      const int rr = k / cnt;
+      const int idx = rr * lay.qs + swz(rr, s0 + k - rr * cnt);
+      q[idx] = remote[idx];
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its smem
+
+  // -- 3. row popcounts of the tile, then the tensor-core search ----------
+  for (int rr = warp; rr < BB; rr += kWarps) {
+    int c = 0;
+    for (int w = lane; w < lay.qs; w += 32) c += __popc(q[rr * lay.qs + w]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      c += __shfl_xor_sync(demeter::kFull, c, off);
+    }
+    if (lane == 0) ra[rr] = c;
+  }
+  __syncthreads();
+
+  const int parts = static_cast<int>(gridDim.z) * C;
+  const int part = static_cast<int>(blockIdx.z) * C + rank;
+  const int per = ((S + parts - 1) / parts + kGroupProtos - 1) /
+                  kGroupProtos * kGroupProtos;
+  const int p0 = part * per;
+  const int p1 = min(S, p0 + per);
+  uint32_t* ring = smem + lay.scratch +
+                   static_cast<long long>(warp) * ring_stages(MT) *
+                       kStageWords;
+  for (int pb = p0 + warp * kGroupProtos; pb < p1;
+       pb += kWarps * kGroupProtos) {
+    search_group<MT>(q, lay.qs, ra, ring, protos, Wp, pc, out, r0, rend, S,
+                     W, dim, pb, min(p1, pb + kGroupProtos), lane);
+  }
+}
+
 template <int MT, int K>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_profile_kernel(const int32_t* __restrict__ tokens,
@@ -272,47 +361,90 @@ fused_profile_kernel(const int32_t* __restrict__ tokens,
     }
   }
 
-  // -- 2. gather the other ranks' words through distributed smem ----------
-  cluster.sync();
-  for (int other = 1; other < C; ++other) {
-    const int src = (rank + other) % C;
-    const uint32_t* remote = cluster.map_shared_rank(q, src);
-    const int s0 = src * lay.span;
-    const int cnt = max(min(lay.span, W - s0), 0);
-    for (int k = tid; k < BB * cnt; k += kThreads) {
-      const int rr = k / cnt;
-      const int idx = rr * lay.qs + swz(rr, s0 + k - rr * cnt);
-      q[idx] = remote[idx];
-    }
-  }
-  cluster.sync();  // no block leaves while another still reads its smem
+  share_and_search<MT>(cluster, lay, smem, q, ra, protos, pc, out, r0,
+                       rend, S, W, Wp, dim, rank, C, tid, warp, lane);
+}
 
-  // -- 3. row popcounts of the tile, then the tensor-core search ----------
-  for (int rr = warp; rr < BB; rr += kWarps) {
-    int c = 0;
-    for (int w = lane; w < lay.qs; w += 32) c += __popc(q[rr * lay.qs + w]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      c += __shfl_xor_sync(demeter::kFull, c, off);
-    }
-    if (lane == 0) ra[rr] = c;
+// The wide path's kernel (5 <= A <= 65,536): phase 1 stages 16-bit
+// symbols and encodes with hdc_common.cuh's wide routine, reading the F / G
+// tables and edge columns from shared memory when fg is null, else from
+// the global tables fg (row stride wide_table_stride(W)) and imr; phases 2
+// and 3 are the 2-bit kernel's.
+template <int MT, int K>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_profile_wide_kernel(const int32_t* __restrict__ tokens,
+                          const int32_t* __restrict__ lengths,
+                          const uint32_t* __restrict__ imr,
+                          const uint32_t* __restrict__ tie,
+                          const uint32_t* __restrict__ fg,
+                          const uint32_t* __restrict__ protos,
+                          const int32_t* __restrict__ pc,
+                          int32_t* __restrict__ out, int B, int L, int n,
+                          int A, int W, int Wp, int S, int dim) {
+  constexpr int BB = 16 * MT;  // reads of the tile
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int C = static_cast<int>(cluster.num_blocks());
+  const bool shared_tables = fg == nullptr;
+  const Layout lay = wide_layout(BB, C, L, n, A, W, shared_tables);
+
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* q = smem + lay.q;
+  int32_t* ra = reinterpret_cast<int32_t*>(smem + lay.ra);
+  uint32_t* tbl = smem + lay.tbl;
+  uint32_t* edge = smem + lay.edge;
+  uint32_t* toks = smem + lay.toks;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = blockIdx.y * BB;
+  const int rend = min(B, r0 + BB);  // reads of this tile end here
+  const int w0 = rank * lay.span;
+  const int own = max(min(lay.span, W - w0), 0);
+
+  // -- 1. encode this rank's words of the BB reads ------------------------
+  demeter::stage_tokens_wide(toks, tokens, r0, BB, rend, L, A, lay.tw, tid,
+                             kThreads);
+  if (own > 0 && shared_tables) {
+    demeter::stage_wide_tables(tbl, imr, n, A, W, w0, lay.cols, tid,
+                               kThreads);
+    demeter::stage_wide_edges(edge, imr, n, A, W, w0, lay.runs, tid,
+                              kThreads);
+  }
+  for (int k = tid; k < BB * (lay.qs - W); k += kThreads) {
+    const int rr = k / (lay.qs - W);
+    q[rr * lay.qs + swz(rr, W + k - rr * (lay.qs - W))] = 0u;
   }
   __syncthreads();
-
-  const int parts = static_cast<int>(gridDim.z) * C;
-  const int part = static_cast<int>(blockIdx.z) * C + rank;
-  const int per = ((S + parts - 1) / parts + kGroupProtos - 1) /
-                  kGroupProtos * kGroupProtos;
-  const int p0 = part * per;
-  const int p1 = min(S, p0 + per);
-  uint32_t* ring = smem + lay.scratch +
-                   static_cast<long long>(warp) * ring_stages(MT) *
-                       kStageWords;
-  for (int pb = p0 + warp * kGroupProtos; pb < p1;
-       pb += kWarps * kGroupProtos) {
-    search_group<MT>(q, lay.qs, ra, ring, protos, Wp, pc, out, r0, rend, S,
-                     W, dim, pb, min(p1, pb + kGroupProtos), lane);
+  const int g = max(L - n + 1, 0);
+  for (int task = warp; task < BB * lay.runs; task += kWarps) {
+    const int rr = task / lay.runs, u = task - rr * lay.runs;
+    const int r = r0 + rr;
+    if (r >= rend || u * demeter::kRunWords >= own) continue;
+    const int m = max(lengths[r] - (n - 1), 0);
+    const int pos0 = u * demeter::kRunWords + demeter::kLaneWords * lane;
+    const uint4 tie4 = demeter::tie_words(tie, W, w0, pos0);
+    uint4 words;
+    if (shared_tables) {
+      words = demeter::encode_run_wide<K>(
+          toks + rr * lay.tw, tbl, lay.cols, edge + u * n * A, A, 1, imr, n,
+          A, W, w0, u, min(m, g), m, tie4, lane);
+    } else {
+      const int we = (w0 + (u + 1) * demeter::kRunWords) % W;
+      words = demeter::encode_run_wide<K>(
+          toks + rr * lay.tw, fg + w0, demeter::wide_table_stride(W),
+          imr + we, static_cast<size_t>(A) * W, W, imr, n, A, W, w0, u,
+          min(m, g), m, tie4, lane);
+    }
+    const uint32_t vals[4] = {words.x, words.y, words.z, words.w};
+#pragma unroll
+    for (int v = 0; v < demeter::kLaneWords; ++v) {
+      if (pos0 + v < own) q[rr * lay.qs + swz(rr, w0 + pos0 + v)] = vals[v];
+    }
   }
+
+  share_and_search<MT>(cluster, lay, smem, q, ra, protos, pc, out, r0,
+                       rend, S, W, Wp, dim, rank, C, tid, warp, lane);
 }
 
 void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
@@ -380,60 +512,152 @@ cudaError_t launch_planes(const int32_t* tokens, const int32_t* lengths,
   }
 }
 
-}  // namespace
+template <int MT, int K>
+cudaError_t launch_wide(const int32_t* tokens, const int32_t* lengths,
+                        const uint32_t* imr, const uint32_t* tie,
+                        const uint32_t* fg, const uint32_t* protos,
+                        int32_t* pc, int32_t* out, int B, int L, int n,
+                        int A, int W, int Wp, int S, int dim, int cluster,
+                        cudaStream_t stream) {
+  const Layout lay = wide_layout(16 * MT, cluster, L, n, A, W, fg == nullptr);
+  if (lay.total > demeter::kMaxSmemBytes) return cudaErrorInvalidValue;
+  auto kernel = fused_profile_wide_kernel<MT, K>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(lay.total));
+  if (err != cudaSuccess) return err;
 
-// Shared-memory bytes of one block at bb = 16 or 32 reads a tile (mirrored
-// by repro_torch.kernels.fused_profile.smem_bytes), or -1 for another bb.
-extern "C" long long fused_profile_smem_bytes(int bb, int cluster, int L,
-                                              int n, int A, int W) {
-  (void)A;
-  if (bb != 16 && bb != 32) return -1;
-  return layout(bb, cluster, L, n, W).total;
+  err = launch_row_popcount(protos, Wp, Wp, S, pc, stream);
+  if (err != cudaSuccess) return err;
+
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int tiles = (B + 16 * MT - 1) / (16 * MT);
+  int splits = sms / (tiles * cluster);
+  splits = splits < 1 ? 1 : (splits > 65535 ? 65535 : splits);
+
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  launch_config(&cfg, attr, dim3(cluster, tiles, splits), lay.total, stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, tokens, lengths, imr, tie, fg,
+                           protos, static_cast<const int32_t*>(pc), out, B,
+                           L, n, A, W, Wp, S, dim);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
-// Clusters of this tiling the card can hold at once (reads of 150 tokens
-// or shorter use the 8-plane kernel), or -1 on a CUDA error: a diagnostic
-// for the tiling sweep.
-extern "C" int fused_profile_max_active_clusters(int bb, int cluster, int L,
-                                                 int n, int W) {
-  if (bb != 16 && bb != 32) return -1;
-  const Layout lay = layout(bb, cluster, L, n, W);
-  auto kernel =
-      bb == 32 ? fused_profile_kernel<2, 8> : fused_profile_kernel<1, 8>;
+// Clusters of `total` shared-memory bytes each that the card holds at once
+// for `kernel`: 0 when a block cannot have that much, -1 on a CUDA error.
+template <typename Kernel>
+int active_clusters(Kernel kernel, long long total, int cluster) {
+  if (total > demeter::kMaxSmemBytes) return 0;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(lay.total)) != cudaSuccess) {
+                           static_cast<int>(total)) != cudaSuccess) {
     return -1;
   }
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  launch_config(&cfg, attr, dim3(cluster, 1, 1), lay.total, nullptr);
+  launch_config(&cfg, attr, dim3(cluster, 1, 1), total, nullptr);
   int count = 0;
   return cudaOccupancyMaxActiveClusters(&count, kernel, &cfg) == cudaSuccess
              ? count
              : -1;
 }
 
+template <int MT>
+cudaError_t launch_planes_wide(const int32_t* tokens, const int32_t* lengths,
+                               const uint32_t* imr, const uint32_t* tie,
+                               const uint32_t* fg, const uint32_t* protos,
+                               int32_t* pc, int32_t* out, int B, int L, int n,
+                               int A, int W, int Wp, int S, int dim,
+                               int cluster, cudaStream_t st) {
+  const int g = L - n + 1 > 0 ? L - n + 1 : 0;
+  switch (demeter::planes_for(g)) {
+    case 8: return launch_wide<MT, 8>(tokens, lengths, imr, tie, fg, protos,
+                                      pc, out, B, L, n, A, W, Wp, S, dim,
+                                      cluster, st);
+    case 14: return launch_wide<MT, 14>(tokens, lengths, imr, tie, fg,
+                                        protos, pc, out, B, L, n, A, W, Wp, S,
+                                        dim, cluster, st);
+    default: return launch_wide<MT, 20>(tokens, lengths, imr, tie, fg,
+                                        protos, pc, out, B, L, n, A, W, Wp,
+                                        S, dim, cluster, st);
+  }
+}
+
+}  // namespace
+
+// Shared-memory bytes of one block at bb = 16 or 32 reads a tile (mirrored
+// by repro_torch.kernels.fused_profile.smem_bytes), or -1 for another bb.
+// A <= 4 is the 2-bit path (shared_tables ignored); a wider alphabet counts
+// its F / G tables and edge columns when shared_tables is nonzero.
+extern "C" long long fused_profile_smem_bytes(int bb, int cluster, int L,
+                                              int n, int A, int W,
+                                              int shared_tables) {
+  if (bb != 16 && bb != 32) return -1;
+  if (A <= 4) return layout(bb, cluster, L, n, W).total;
+  return wide_layout(bb, cluster, L, n, A, W, shared_tables != 0).total;
+}
+
+// Clusters of this tiling the card can hold at once (reads of 150 tokens
+// or shorter use the 8-plane kernel), or -1 on a CUDA error: a diagnostic
+// for the tiling sweep and the autotuner.
+extern "C" int fused_profile_max_active_clusters(int bb, int cluster, int L,
+                                                 int n, int A, int W,
+                                                 int shared_tables) {
+  if (bb != 16 && bb != 32) return -1;
+  if (A <= 4) {
+    const long long total = layout(bb, cluster, L, n, W).total;
+    return bb == 32 ? active_clusters(fused_profile_kernel<2, 8>, total,
+                                      cluster)
+                    : active_clusters(fused_profile_kernel<1, 8>, total,
+                                      cluster);
+  }
+  const long long total =
+      wide_layout(bb, cluster, L, n, A, W, shared_tables != 0).total;
+  return bb == 32 ? active_clusters(fused_profile_wide_kernel<2, 8>, total,
+                                    cluster)
+                  : active_clusters(fused_profile_wide_kernel<1, 8>, total,
+                                    cluster);
+}
+
 // tokens (B, L) int32, lengths (B,) int32, imr (n, A, W) uint32 with
-// A <= 4 (symbols outside [0, A) are clamped into it), tie (W,) uint32,
-// protos (S, Wp) uint32 with Wp = ceil(W / 32) * 32 (zero pad words,
-// 16-byte aligned rows), pc (S,) int32 scratch for the prototypes'
-// popcounts -> out (B, S) int32.  bb (reads per tile) is 16 or 32,
-// cluster 1, 2, 4 or 8.  Returns a cudaError_t.
+// 1 <= A <= 65,536 (symbols outside [0, A) are clamped into it), tie (W,)
+// uint32, protos (S, Wp) uint32 with Wp = ceil(W / 32) * 32 (zero pad
+// words, 16-byte aligned rows), pc (S,) int32 scratch for the prototypes'
+// popcounts -> out (B, S) int32.  For A > 4, fg is null (the F / G tables
+// in shared memory) or the global tables of hdc_encode_launch.  bb (reads
+// per tile) is 16 or 32, cluster 1, 2, 4 or 8.  Returns a cudaError_t.
 extern "C" int fused_profile_launch(const int32_t* tokens,
                                     const int32_t* lengths,
                                     const uint32_t* imr, const uint32_t* tie,
+                                    const uint32_t* fg,
                                     const uint32_t* protos, int32_t* pc,
                                     int32_t* out, int B, int L, int n, int A,
                                     int W, int S, int dim, int bb,
                                     int cluster, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const int g = L - n + 1 > 0 ? L - n + 1 : 0;
-  if (cluster < 1 || cluster > 8 || A < 1 || A > 4 || n < 1 ||
-      g > demeter::kMaxGrams) {
+  if (cluster < 1 || cluster > 8 || A < 1 || A > demeter::kMaxAlphabet ||
+      n < 1 || g > demeter::kMaxGrams) {
     return cudaErrorInvalidValue;
   }
   const int Wp = steps_of(W) * kStepWords;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (A > 4) {
+    switch (bb) {
+      case 16:
+        return launch_planes_wide<1>(tokens, lengths, imr, tie, fg, protos,
+                                     pc, out, B, L, n, A, W, Wp, S, dim,
+                                     cluster, st);
+      case 32:
+        return launch_planes_wide<2>(tokens, lengths, imr, tie, fg, protos,
+                                     pc, out, B, L, n, A, W, Wp, S, dim,
+                                     cluster, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (bb) {
     case 16:
       return launch_planes<1>(tokens, lengths, imr, tie, protos, pc, out, B,

@@ -39,6 +39,21 @@
 // Tokens are 2-bit symbols (alphabets of at most 4, clamped to [0, A)),
 // staged 16 to a word; the pair ids are staged as 4-bit nibbles, 8 to a
 // word.
+//
+// Alphabets of 5 to 65,536 symbols take the wide path (the *_wide
+// functions at the end; it shares the counting, count16, and the majority
+// with the 2-bit path).  Its
+// symbols are staged at 16 bits, 2 a word, and the 16-row pair table,
+// which would need A^2 rows, is split into its two separable halves,
+//   F[a][w] = imr[0][a][w + 1]   (stored shifted, so a lane's four words
+//                                 stay one aligned 16-byte load)
+//   G[b][w] = imr[n-1][b][w],
+// so gram_{i+1}[w] = gram_i[w + 1] ^ F[c_i][w] ^ G[c_{i+n}][w]: two
+// 16-byte loads and one more XOR a gram.  The 2A rows of the block's
+// words sit in shared memory where they fit beside the rest, else the
+// kernels read them from a global copy the wrapper lays out (one row of
+// Wx >= W + 256 words per symbol, wrapped mod W, so every run's words,
+// wrapped ones included, are one contiguous stretch), served from L2.
 #pragma once
 
 #include <cstdint>
@@ -208,14 +223,13 @@ __device__ __forceinline__ void advance(uint32_t (&gram)[kLaneWords],
   gram[3] = in ^ t.w;
 }
 
-// Counts grams s0 .. s0 + 15 (those below `steps` when kMask) and leaves
-// gram_{s0+16} in st.gram.  pw0/pw1 hold the 16 pair ids; ebuf holds the
-// edge grams of the current 32-gram chunk, one a lane, from lane eoff.
-template <int K, bool kMask>
-__device__ __forceinline__ void group16(RunState<K>& st, const uint32_t* tbl4,
-                                        int cols, uint32_t pw0, uint32_t pw1,
-                                        uint32_t ebuf, int eoff, int lane,
-                                        int left) {
+// Counts grams s0 .. s0 + 15 (those below `left` when kMask) and leaves
+// gram_{s0+16} in st.gram; step(kk) advances st.gram from gram s0 + kk to
+// s0 + kk + 1.  The grams enter the counters two at a time through the
+// carry-save tree.
+template <int K, bool kMask, typename Step>
+__device__ __forceinline__ void count16(RunState<K>& st, int left,
+                                        Step step) {
   uint32_t twosA[kLaneWords], twosB[kLaneWords], foursA[kLaneWords],
       foursB[kLaneWords], eightsA[kLaneWords], eightsB[kLaneWords];
 #pragma unroll
@@ -233,9 +247,7 @@ __device__ __forceinline__ void group16(RunState<K>& st, const uint32_t* tbl4,
           xb[v] = x;
         }
       }
-      const uint32_t p = ((kk < 8 ? pw0 : pw1) >> (4 * (kk & 7))) & 15u;
-      const uint32_t e = __shfl_sync(kFull, ebuf, eoff + kk);
-      advance(st.gram, tbl4, cols, p, e, lane);
+      step(kk);
     }
 #pragma unroll
     for (int v = 0; v < kLaneWords; ++v) {
@@ -268,6 +280,20 @@ __device__ __forceinline__ void group16(RunState<K>& st, const uint32_t* tbl4,
       }
     }
   }
+}
+
+// The 2-bit path's 16 grams: pw0/pw1 hold the 16 pair ids; ebuf holds the
+// edge grams of the current 32-gram chunk, one a lane, from lane eoff.
+template <int K, bool kMask>
+__device__ __forceinline__ void group16(RunState<K>& st, const uint32_t* tbl4,
+                                        int cols, uint32_t pw0, uint32_t pw1,
+                                        uint32_t ebuf, int eoff, int lane,
+                                        int left) {
+  count16<K, kMask>(st, left, [&](int kk) {
+    const uint32_t p = ((kk < 8 ? pw0 : pw1) >> (4 * (kk & 7))) & 15u;
+    const uint32_t e = __shfl_sync(kFull, ebuf, eoff + kk);
+    advance(st.gram, tbl4, cols, p, e, lane);
+  });
 }
 
 // Majority of one word from its planes: bit = count > m >> 1, or the tie
@@ -359,6 +385,189 @@ __device__ __forceinline__ uint4 tie_words(const uint32_t* __restrict__ tie,
   t.z = __ldg(tie + (w0 + pos0 + 2) % W);
   t.w = __ldg(tie + (w0 + pos0 + 3) % W);
   return t;
+}
+
+// ---------------------------------------------------------------------------
+// The wide path: alphabets of 5 to 65,536 symbols.
+// ---------------------------------------------------------------------------
+
+// Largest alphabet (symbols are staged at 16 bits).
+constexpr int kMaxAlphabet = 1 << 16;
+
+// Words of one read's staged 16-bit symbols: zero past L, and room for
+// symbol L + 35 (the edge grams and the c_{i+n} column read up to L + 31).
+__host__ __device__ inline int wide_tok_words(int L) {
+  return round16(L / 2 + 18);
+}
+
+// Row stride, in words, of the global F / G tables: W + 256 (a run of a
+// block may reach 255 words past W) rounded to 16 bytes.
+__host__ __device__ inline int wide_table_stride(int W) {
+  return round16(W + 256);
+}
+
+// Symbol i of a read's staged 16-bit symbols.
+__device__ __forceinline__ uint32_t sym16(const uint32_t* toks, int i) {
+  return (toks[i >> 1] >> (16 * (i & 1))) & 0xffffu;
+}
+
+// Stages `rows` reads starting at read r0: symbols 2 to a word at
+// toks + rr * tw, clamped to [0, A), zero past L and for rows past B.
+__device__ __forceinline__ void stage_tokens_wide(
+    uint32_t* __restrict__ toks, const int32_t* __restrict__ tokens, int r0,
+    int rows, int B, int L, int A, int tw, int tid, int nthreads) {
+  for (int k = tid; k < rows * tw; k += nthreads) {
+    const int rr = k / tw;
+    const int q = k - rr * tw;
+    const int r = r0 + rr;
+    uint32_t word = 0u;
+    if (r < B) {
+      const int32_t* row = tokens + static_cast<size_t>(r) * L;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int i = 2 * q + t;
+        int c = i < L ? __ldg(row + i) : 0;
+        c = c < 0 ? 0 : (c >= A ? A - 1 : c);
+        word |= static_cast<uint32_t>(c) << (16 * t);
+      }
+    }
+    toks[k] = word;
+  }
+}
+
+// The F and G tables of the word positions [w0, w0 + cols) (mod W) in
+// shared memory: tbl[a * cols + pos] = imr[0][a][w + 1] for a < A, then
+// tbl[(A + b) * cols + pos] = imr[n-1][b][w].
+__device__ __forceinline__ void stage_wide_tables(
+    uint32_t* __restrict__ tbl, const uint32_t* __restrict__ imr, int n,
+    int A, int W, int w0, int cols, int tid, int nthreads) {
+  const uint32_t* last = imr + static_cast<size_t>(n - 1) * A * W;
+  for (int k = tid; k < 2 * A * cols; k += nthreads) {
+    const int row = k / cols;
+    const int w = (w0 + (k - row * cols)) % W;
+    if (row < A) {
+      const int w1 = w + 1 == W ? 0 : w + 1;
+      tbl[k] = imr[static_cast<size_t>(row) * W + w1];
+    } else {
+      tbl[k] = last[static_cast<size_t>(row - A) * W + w];
+    }
+  }
+}
+
+// The edge columns of `runs` runs starting at word w0 in shared memory:
+// for run u, edge[(u * n + j) * A + a] = imr[j][a][we] with
+// we = (w0 + (u + 1) * kRunWords) mod W.
+__device__ __forceinline__ void stage_wide_edges(
+    uint32_t* __restrict__ edge, const uint32_t* __restrict__ imr, int n,
+    int A, int W, int w0, int runs, int tid, int nthreads) {
+  for (int k = tid; k < runs * n * A; k += nthreads) {
+    const int u = k / (n * A);
+    const int ja = k - u * n * A;           // j * A + a
+    const int we = (w0 + (u + 1) * kRunWords) % W;
+    edge[k] = imr[static_cast<size_t>(ja) * W + we];
+  }
+}
+
+// gram_i of one word from its column: col[j * sj + a * sa] = imr[j][a][w]
+// (shared: the staged edge column, sj = A, sa = 1; global: imr + w,
+// sj = A W, sa = W).
+__device__ __forceinline__ uint32_t direct_gram_wide(
+    const uint32_t* col, size_t sj, size_t sa, const uint32_t* toks, int i,
+    int n) {
+  uint32_t g = 0u;
+  for (int j = 0; j < n; ++j) g ^= col[j * sj + sym16(toks, i + j) * sa];
+  return g;
+}
+
+// gram_s -> gram_{s+1}: f4 / g4 point at this lane's words of row 0 of F
+// and of G (row stride `stride` words); e is gram_s at the word right of
+// the run, needed by lane 31 only.
+__device__ __forceinline__ void advance_wide(uint32_t (&gram)[kLaneWords],
+                                             const uint32_t* f4,
+                                             const uint32_t* g4,
+                                             size_t stride, uint32_t a,
+                                             uint32_t b, uint32_t e,
+                                             int lane) {
+  const uint4 f = *reinterpret_cast<const uint4*>(f4 + a * stride);
+  const uint4 g = *reinterpret_cast<const uint4*>(g4 + b * stride);
+  uint32_t in = __shfl_down_sync(kFull, gram[0], 1);
+  in = lane == 31 ? e : in;
+  gram[0] = gram[1] ^ f.x ^ g.x;
+  gram[1] = gram[2] ^ f.y ^ g.y;
+  gram[2] = gram[3] ^ f.z ^ g.z;
+  gram[3] = in ^ f.w ^ g.w;
+}
+
+// The wide path's 16 grams: the symbols c_i and c_{i+n} of gram i come
+// from lane (i mod 32) of xa / xb, the edge gram from ebuf, all held for
+// the current 32-gram chunk from lane eoff on.
+template <int K, bool kMask>
+__device__ __forceinline__ void group16_wide(
+    RunState<K>& st, const uint32_t* f4, const uint32_t* g4, size_t stride,
+    uint32_t xa, uint32_t xb, uint32_t ebuf, int eoff, int lane, int left) {
+  count16<K, kMask>(st, left, [&](int kk) {
+    const uint32_t a = __shfl_sync(kFull, xa, eoff + kk);
+    const uint32_t b = __shfl_sync(kFull, xb, eoff + kk);
+    const uint32_t e = __shfl_sync(kFull, ebuf, eoff + kk);
+    advance_wide(st.gram, f4, g4, stride, a, b, e, lane);
+  });
+}
+
+// encode_run of the wide path.
+//   toks:            the read's staged 16-bit symbols.
+//   tbl, stride:     F's row 0 at the block's word 0 (G's rows follow F's
+//                    A rows) and the row stride in words.
+//   ecol, esj, esa:  the run's edge column and its strides (see
+//                    direct_gram_wide).
+// The rest as in encode_run.
+template <int K>
+__device__ __forceinline__ uint4 encode_run_wide(
+    const uint32_t* __restrict__ toks, const uint32_t* tbl, size_t stride,
+    const uint32_t* ecol, size_t esj, size_t esa,
+    const uint32_t* __restrict__ imr, int n, int A, int W, int w0, int u,
+    int steps, int m, uint4 tie4, int lane) {
+  RunState<K> st;
+  const int pos0 = u * kRunWords + kLaneWords * lane;
+#pragma unroll
+  for (int v = 0; v < kLaneWords; ++v) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) st.pl[v][q] = 0u;
+    st.gram[v] = 0u;
+  }
+  if (steps > 0) {
+    int wv[kLaneWords];
+#pragma unroll
+    for (int v = 0; v < kLaneWords; ++v) wv[v] = (w0 + pos0 + v) % W;
+    for (int j = 0; j < n; ++j) {
+      const uint32_t* row =
+          imr + (static_cast<size_t>(j) * A + sym16(toks, j)) * W;
+#pragma unroll
+      for (int v = 0; v < kLaneWords; ++v) st.gram[v] ^= __ldg(row + wv[v]);
+    }
+  }
+  const uint32_t* f4 = tbl + pos0;
+  const uint32_t* g4 = tbl + A * stride + pos0;
+  uint32_t ebuf = 0u, xa = 0u, xb = 0u;
+  for (int s0 = 0; s0 < steps; s0 += 16) {
+    if ((s0 & 31) == 0) {
+      ebuf = direct_gram_wide(ecol, esj, esa, toks, s0 + lane, n);
+      xa = sym16(toks, s0 + lane);
+      xb = sym16(toks, s0 + n + lane);
+    }
+    if (s0 + 16 <= steps) {
+      group16_wide<K, false>(st, f4, g4, stride, xa, xb, ebuf, s0 & 31, lane,
+                             16);
+    } else {
+      group16_wide<K, true>(st, f4, g4, stride, xa, xb, ebuf, s0 & 31, lane,
+                            steps - s0);
+    }
+  }
+  uint4 out;
+  out.x = majority<K>(st.pl[0], m, tie4.x);
+  out.y = majority<K>(st.pl[1], m, tie4.y);
+  out.z = majority<K>(st.pl[2], m, tie4.z);
+  out.w = majority<K>(st.pl[3], m, tie4.w);
+  return out;
 }
 
 }  // namespace demeter

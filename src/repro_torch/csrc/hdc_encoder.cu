@@ -18,6 +18,8 @@
 // covers kEncReads reads x kEncRuns runs; it stages the pair table of its
 // kEncRuns * 128 words (16 KB), its reads' tokens (16 to a word) and pair
 // ids (8 to a word), and the runs' edge columns in shared memory.
+// Alphabets above 4 take hdc_encode_wide_kernel (hdc_common.cuh's wide
+// path); the 2-bit kernel is unchanged by it.
 #include "hdc_common.cuh"
 
 namespace {
@@ -109,29 +111,145 @@ cudaError_t launch(const int32_t* tokens, const int32_t* lengths,
   return cudaGetLastError();
 }
 
+// The wide path (5 <= A <= 65,536; hdc_common.cuh): symbols 2 to a word,
+// the F / G tables of the block's 256 words and the runs' (n, A) edge
+// columns in shared memory when they fit there (`fg` null), else read
+// from the wrapper's global F / G rows (`fg`, row stride wide_table_stride)
+// and from imr.
+struct WideLayout {
+  int tw;
+  long long tbl, edge, toks;  // word offsets (tbl, edge unused from global)
+  long long total;            // bytes
+};
+
+__host__ __device__ inline WideLayout wide_layout(int L, int n, int A,
+                                                  bool shared_tables) {
+  WideLayout s;
+  s.tw = demeter::wide_tok_words(L);
+  s.tbl = 0;
+  s.edge = s.tbl;
+  s.toks = s.tbl;
+  if (shared_tables) {
+    s.edge = s.tbl + 2LL * A * kCols;
+    s.toks = s.edge + demeter::round16(kEncRuns * n * A);
+  }
+  s.total = (s.toks + static_cast<long long>(kEncReads) * s.tw) * 4;
+  return s;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+hdc_encode_wide_kernel(const int32_t* __restrict__ tokens,
+                       const int32_t* __restrict__ lengths,
+                       const uint32_t* __restrict__ imr,
+                       const uint32_t* __restrict__ tie,
+                       const uint32_t* __restrict__ fg,
+                       uint32_t* __restrict__ out, int B, int L, int n,
+                       int A, int W) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const bool shared_tables = fg == nullptr;
+  const WideLayout lay = wide_layout(L, n, A, shared_tables);
+  uint32_t* toks = smem + lay.toks;
+
+  const int w0 = blockIdx.x * kCols;
+  const int r0 = blockIdx.y * kEncReads;
+  const int tid = threadIdx.x;
+  demeter::stage_tokens_wide(toks, tokens, r0, kEncReads, B, L, A, lay.tw,
+                             tid, kThreads);
+  if (shared_tables) {
+    demeter::stage_wide_tables(smem + lay.tbl, imr, n, A, W, w0, kCols, tid,
+                               kThreads);
+    demeter::stage_wide_edges(smem + lay.edge, imr, n, A, W, w0, kEncRuns,
+                              tid, kThreads);
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int rr = warp / kEncRuns, u = warp % kEncRuns;
+  const int r = r0 + rr;
+  if (r >= B) return;
+  const int g = max(L - n + 1, 0);
+  const int m = max(lengths[r] - (n - 1), 0);
+  const int pos0 = u * demeter::kRunWords + demeter::kLaneWords * lane;
+  const int own = min(kCols, W - w0);
+  if (u * demeter::kRunWords >= own) return;
+  const uint4 tie4 = demeter::tie_words(tie, W, w0, pos0);
+  uint4 words;
+  if (shared_tables) {
+    words = demeter::encode_run_wide<K>(
+        toks + rr * lay.tw, smem + lay.tbl, kCols,
+        smem + lay.edge + u * n * A, A, 1, imr, n, A, W, w0, u, min(m, g), m,
+        tie4, lane);
+  } else {
+    const int we = (w0 + (u + 1) * demeter::kRunWords) % W;
+    words = demeter::encode_run_wide<K>(
+        toks + rr * lay.tw, fg + w0, demeter::wide_table_stride(W), imr + we,
+        static_cast<size_t>(A) * W, W, imr, n, A, W, w0, u, min(m, g), m,
+        tie4, lane);
+  }
+  uint32_t* dst = out + static_cast<size_t>(r) * W + w0;
+  const uint32_t vals[4] = {words.x, words.y, words.z, words.w};
+#pragma unroll
+  for (int v = 0; v < demeter::kLaneWords; ++v) {
+    if (pos0 + v < own) dst[pos0 + v] = vals[v];
+  }
+}
+
+template <int K>
+cudaError_t launch_wide(const int32_t* tokens, const int32_t* lengths,
+                        const uint32_t* imr, const uint32_t* tie,
+                        const uint32_t* fg, uint32_t* out, int B, int L,
+                        int n, int A, int W, long long smem,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      hdc_encode_wide_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + kCols - 1) / kCols, (B + kEncReads - 1) / kEncReads);
+  hdc_encode_wide_kernel<K><<<grid, kThreads, smem, stream>>>(
+      tokens, lengths, imr, tie, fg, out, B, L, n, A, W);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared-memory bytes of one block (the wrapper checks it before launch).
-extern "C" long long hdc_encode_smem_bytes(int L, int n, int A) {
-  (void)A;
-  return layout(L, n).total;
+// A <= 4 stages 2-bit symbols and ignores shared_tables; a wider alphabet
+// counts its F / G tables and edge columns when shared_tables is nonzero.
+extern "C" long long hdc_encode_smem_bytes(int L, int n, int A,
+                                           int shared_tables) {
+  if (A <= 4) return layout(L, n).total;
+  return wide_layout(L, n, A, shared_tables != 0).total;
 }
 
 // tokens (B, L) int32, lengths (B,) int32, imr (n, A, W) uint32 with
-// A <= 4, tie (W,) uint32 -> out (B, W) uint32.  Returns a cudaError_t.
+// 1 <= A <= 65,536, tie (W,) uint32 -> out (B, W) uint32.  For A > 4, fg
+// is null (the F / G tables in shared memory) or the (2A, Wx) global
+// tables, Wx = wide_table_stride(W): fg[a][x] = imr[0][a][(x + 1) mod W],
+// fg[A + b][x] = imr[n-1][b][x mod W].  Returns a cudaError_t.
 extern "C" int hdc_encode_launch(const int32_t* tokens,
                                  const int32_t* lengths,
                                  const uint32_t* imr, const uint32_t* tie,
-                                 uint32_t* out, int B, int L, int n, int A,
-                                 int W, void* stream) {
+                                 const uint32_t* fg, uint32_t* out, int B,
+                                 int L, int n, int A, int W, void* stream) {
   if (B <= 0 || W <= 0) return 0;
   const int g = L - n + 1 > 0 ? L - n + 1 : 0;
-  if (A < 1 || A > 4 || n < 1 || g > demeter::kMaxGrams) {
+  if (A < 1 || A > demeter::kMaxAlphabet || n < 1 || g > demeter::kMaxGrams) {
     return cudaErrorInvalidValue;
   }
-  const long long smem = hdc_encode_smem_bytes(L, n, A);
+  const long long smem = hdc_encode_smem_bytes(L, n, A, fg == nullptr);
   if (smem > demeter::kMaxSmemBytes) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (A > 4) {
+    switch (demeter::planes_for(g)) {
+      case 8: return launch_wide<8>(tokens, lengths, imr, tie, fg, out, B, L,
+                                    n, A, W, smem, st);
+      case 14: return launch_wide<14>(tokens, lengths, imr, tie, fg, out, B,
+                                      L, n, A, W, smem, st);
+      default: return launch_wide<20>(tokens, lengths, imr, tie, fg, out, B,
+                                      L, n, A, W, smem, st);
+    }
+  }
   switch (demeter::planes_for(g)) {
     case 8: return launch<8>(tokens, lengths, imr, tie, out, B, L, n, A, W,
                              smem, st);

@@ -26,6 +26,14 @@ cached pick that does not fit its bucket is measured again.  Each new
 bucket a session sees is tuned (or read from the cache) at its first
 batch.
 
+**Alphabet.**  Above 4 symbols the kernel's wide path keeps 2A table
+rows of the block's words in shared memory where they fit beside the
+tile, and reads them through L2 where they do not (at A = 20, bb 16 /
+cluster 1 would need 306 KB with them).  So a tiling's shared memory is
+counted with its tables where they fit and without them where they do
+not, and the key carries the alphabet above 4: the place of the tables
+moves the times.
+
 Wired into the pipeline as ``backend_options autotune=true`` on
 ``cuda_fused`` (:mod:`repro_torch.pipeline.fused`); also usable alone::
 
@@ -80,12 +88,17 @@ def read_len_bucket(read_len: int) -> int:
 
 
 def cache_key(b: int, w: int, s: int, dim: int, read_len: int,
-              device: str | torch.device | None = None) -> str:
-    """Cache key: (platform, card, B, W, S, dim, read-length bucket)."""
+              device: str | torch.device | None = None, *,
+              alphabet: int = fused_profile.NARROW_ALPHABET) -> str:
+    """Cache key: (platform, card, B, W, S, dim, read-length bucket) and,
+    above 4 symbols, the alphabet (the wide path's tables change what
+    fits and how fast)."""
     dev = resolve_device(device)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    wide = (f"|A{alphabet}" if alphabet > fused_profile.NARROW_ALPHABET
+            else "")
     return (f"{dev.type}|{kind}|B{b}|W{w}|S{s}|D{dim}"
-            f"|L{read_len_bucket(read_len)}")
+            f"|L{read_len_bucket(read_len)}{wide}")
 
 
 def load_cache(path: str | os.PathLike | None = None) -> dict:
@@ -125,13 +138,14 @@ def fits(tiles: dict[str, int], space: HDSpace, read_len: int,
     least one cluster resident at once."""
     args = (tiles["bb"], tiles["cluster"], read_len, space.ngram,
             space.alphabet_size, space.num_words)
-    if fused_profile.smem_bytes(*args) > fused_profile.MAX_SMEM_BYTES:
+    if fused_profile.smem_bytes(*args, fused_profile.shared_tables(*args)) \
+            > fused_profile.MAX_SMEM_BYTES:
         return False
     if device.type != "cuda":
         return True
     return fused_profile.max_active_clusters(
         tiles["bb"], tiles["cluster"], read_len, space.ngram,
-        space.num_words) > 0
+        space.num_words, space.alphabet_size) > 0
 
 
 def feasible_tiles(space: HDSpace, read_len: int,
@@ -144,15 +158,19 @@ def feasible_tiles(space: HDSpace, read_len: int,
 
 
 def _synthetic_inputs(space: HDSpace, batch: int, num_prototypes: int,
-                      read_len: int, seed: int, device: torch.device):
+                      read_len: int, seed: int, device: torch.device,
+                      partitionable: bool = True):
     """Measurement inputs at the live shape, made from ``seed``, in the
-    form the kernel wrapper takes (with the rolled item memory)."""
+    form the kernel wrapper takes (with the rolled item memory drawn in
+    the session's threefry mode)."""
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(
         0, space.alphabet_size, (batch, read_len), dtype=np.int32)).to(device)
     lengths = torch.full((batch,), read_len, dtype=torch.int32, device=device)
-    im = item_memory.make_item_memory(space, device=device)
-    tie = item_memory.make_tie_break(space, device=device)
+    im = item_memory.make_item_memory(space, device=device,
+                                      partitionable=partitionable)
+    tie = item_memory.make_tie_break(space, device=device,
+                                     partitionable=partitionable)
     protos = torch.from_numpy(rng.integers(
         0, 2 ** 32, (num_prototypes, space.num_words), dtype=np.uint32
     ).view(np.int32)).to(device)
@@ -192,20 +210,22 @@ def _time_tiles(tiles: dict[str, int], args, space: HDSpace,
 def tune(space: HDSpace, *, batch: int, num_prototypes: int, read_len: int,
          path: str | os.PathLike | None = None, force: bool = False,
          trials: int = 10, seed: int = 0,
-         device: str | torch.device | None = None
-         ) -> tuple[dict[str, int], bool]:
+         device: str | torch.device | None = None,
+         partitionable: bool = True) -> tuple[dict[str, int], bool]:
     """Pick (and cache) the fastest tiling that fits the live shape.
 
     Returns ``(tiles, cached)``: ``tiles`` is ``{"bb", "cluster"}`` and
     ``cached`` is True when it came straight from the cache (no
-    measurement ran).  ``trials`` is the launches timed per candidate.
+    measurement ran).  ``trials`` is the launches timed per candidate;
+    ``partitionable`` is the session's threefry mode, in which the
+    measurement's item memory is drawn.
 
     Raises:
       ValueError: no tiling fits reads of ``read_len``'s bucket.
     """
     dev = resolve_device(device)
     key = cache_key(batch, space.num_words, num_prototypes, space.dim,
-                    read_len, dev)
+                    read_len, dev, alphabet=space.alphabet_size)
     bucket = read_len_bucket(read_len)
     cache = load_cache(path)
     entry = cache.get(key)
@@ -226,7 +246,7 @@ def tune(space: HDSpace, *, batch: int, num_prototypes: int, read_len: int,
             f"(shared memory above {fused_profile.MAX_SMEM_BYTES} bytes a "
             f"block); use an unfused backend for reads this long")
     args = _synthetic_inputs(space, batch, num_prototypes, read_len, seed,
-                             dev)
+                             dev, partitionable)
     timed = [(_time_tiles(t, args, space, trials), t) for t in feasible]
     best_t, best = min(timed, key=lambda tt: tt[0])
     cache[key] = {
@@ -235,7 +255,7 @@ def tune(space: HDSpace, *, batch: int, num_prototypes: int, read_len: int,
         "swept": len(feasible),
         "times_s": {f"bb{t['bb']}/cluster{t['cluster']}": s
                     for s, t in timed},
-        "smem_bytes": fused_profile.smem_bytes(
+        "smem_bytes": fused_profile.check_tiles(
             best["bb"], best["cluster"], bucket, space.ngram,
             space.alphabet_size, space.num_words),
         "read_len_bucket": bucket,

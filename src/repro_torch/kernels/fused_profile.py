@@ -23,6 +23,10 @@ with CUDA C++ for ``sm_90a`` (``csrc/fused_profile.cu``).
   the blocks exchange their words through distributed shared memory, and
   each scores the whole tile against its share of the prototypes.  The
   encoded ``(B, W)`` matrix never reaches global memory.
+* Alphabets above 4 take the encoder's wide path (16-bit symbols, the
+  F / G tables of 2A rows in shared memory where they fit beside the
+  tile, else read through L2 from :func:`hdc_encoder.wide_tables`); the
+  search is the same code.
 
 :func:`fused_profile` launches the kernel for CUDA tensors and counts the
 launch in ``fused_profile.launches``; for CPU tensors it runs
@@ -37,8 +41,10 @@ import torch
 
 from repro_torch.core import assoc_memory, bitops
 from repro_torch.kernels import _build
-from repro_torch.kernels.hdc_encoder import (check_shape, hdc_encode_plain,
-                                             staged_words)
+from repro_torch.kernels.hdc_encoder import (NARROW_ALPHABET, _round16,
+                                             check_shape, hdc_encode_plain,
+                                             staged_words, wide_tables,
+                                             wide_tok_words)
 
 MAX_SMEM_BYTES = 232448
 #: Reads a cluster tile: one or two m16 row blocks of the search's mma.
@@ -53,24 +59,44 @@ _THREADS = 512
 
 
 def smem_bytes(bb: int, cluster: int, read_len: int, n: int, alphabet: int,
-               w: int) -> int:
+               w: int, shared_tables: bool = True) -> int:
     """Shared memory of one block (``fused_profile_smem_bytes`` in C):
     the encoded tile (``bb`` rows of W words padded to 32) and
-    its row popcounts, then the larger of the encode scratch (the pair
-    table of the block's runs of 128 words, their edge columns, the
-    tile's staged tokens and pair ids) and the warps' prototype rings
-    (16 rows x 32 words a stage; 4 stages at 16 rows, 2 at 32)."""
-    del alphabet  # the kernel stages 2-bit symbols whatever A is
+    its row popcounts, then the larger of the encode scratch and the
+    warps' prototype rings (16 rows x 32 words a stage; 4 stages at 16
+    rows, 2 at 32).
+
+    The encode scratch at A <= 4: the pair table of the block's runs of
+    128 words, their edge columns, the tile's staged tokens and pair ids.
+    At A > 4: the tile's 16-bit symbols and, with ``shared_tables``, the
+    F / G tables of the block's runs (2A rows) and their ``(n, A)`` edge
+    columns; the block's span of words is rounded to 4."""
     rows = bb
     qs = -(-w // STEP_WORDS) * STEP_WORDS
-    runs = -(-(-(-w // cluster)) // 128)
-    tw, pw = staged_words(read_len)
-    scratch = rows * qs + -(-rows // 4) * 4
-    enc = scratch + 16 * runs * 128 + -(-runs * n * 4 // 4) * 4 \
-        + rows * (tw + pw)
+    scratch = rows * qs + _round16(rows)
+    if alphabet <= NARROW_ALPHABET:
+        runs = -(-(-(-w // cluster)) // 128)
+        tw, pw = staged_words(read_len)
+        enc = scratch + 16 * runs * 128 + _round16(runs * n * 4) \
+            + rows * (tw + pw)
+    else:
+        runs = -(-_round16(-(-w // cluster)) // 128)
+        enc = scratch + rows * wide_tok_words(read_len)
+        if shared_tables:
+            enc += (2 * alphabet * runs * 128
+                    + _round16(runs * n * alphabet))
     stages = 4 if rows == 16 else 2
     ring = scratch + _THREADS // 32 * stages * 16 * STEP_WORDS
     return max(enc, ring) * 4
+
+
+def shared_tables(bb: int, cluster: int, read_len: int, n: int,
+                  alphabet: int, w: int) -> bool:
+    """Whether the tiling holds the wide path's tables in shared memory
+    (true at A <= 4, whose pair table always sits there)."""
+    return (alphabet <= NARROW_ALPHABET
+            or smem_bytes(bb, cluster, read_len, n, alphabet, w, True)
+            <= MAX_SMEM_BYTES)
 
 
 def check_tiles(bb: int, cluster: int, read_len: int, n: int, alphabet: int,
@@ -83,7 +109,8 @@ def check_tiles(bb: int, cluster: int, read_len: int, n: int, alphabet: int,
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"fused_profile: cluster must be one of "
                          f"{CLUSTER_SIZES}, got {cluster}")
-    smem = smem_bytes(bb, cluster, read_len, n, alphabet, w)
+    smem = smem_bytes(bb, cluster, read_len, n, alphabet, w,
+                      shared_tables(bb, cluster, read_len, n, alphabet, w))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"fused_profile: bb={bb}, cluster={cluster} with W={w} words, "
@@ -106,23 +133,24 @@ def _lib():
     lib = _build.library("fused_profile")
     if not getattr(lib, "_typed", False):
         lib.fused_profile_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.fused_profile_launch.restype = ctypes.c_int
-        lib.fused_profile_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.fused_profile_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.fused_profile_smem_bytes.restype = ctypes.c_longlong
-        lib.fused_profile_max_active_clusters.argtypes = [ctypes.c_int] * 5
+        lib.fused_profile_max_active_clusters.argtypes = [ctypes.c_int] * 7
         lib.fused_profile_max_active_clusters.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
 def max_active_clusters(bb: int, cluster: int, read_len: int, n: int,
-                        w: int) -> int:
+                        w: int, alphabet: int = NARROW_ALPHABET) -> int:
     """Clusters of this tiling the card holds at once
     (``fused_profile_max_active_clusters`` in C; 0 or -1 when the tiling
     cannot launch).  Needs a card: it asks the CUDA occupancy API."""
-    return _lib().fused_profile_max_active_clusters(bb, cluster, read_len,
-                                                    n, w)
+    return _lib().fused_profile_max_active_clusters(
+        bb, cluster, read_len, n, alphabet, w,
+        int(shared_tables(bb, cluster, read_len, n, alphabet, w)))
 
 
 def _check(tokens, lengths, im_rolled, tie, prototypes) -> None:
@@ -157,10 +185,10 @@ def fused_profile(tokens: torch.Tensor, lengths: torch.Tensor,
     """Agreement of every read against every prototype, in one launch.
 
     Args:
-      tokens: ``(B, L)`` int32 symbol ids in [0, alphabet), alphabet <= 4
-        (the kernel stages 2-bit symbols).  Ids outside that range are
-        the caller's error: the kernel clamps them into it, the plain
-        version indexes the item memory with them as given.
+      tokens: ``(B, L)`` int32 symbol ids in [0, alphabet), alphabet <=
+        65,536 (2-bit symbols up to 4, 16-bit ones above).  Ids outside
+        that range are the caller's error: the kernel clamps them into
+        it, the plain version indexes the item memory with them as given.
       lengths: ``(B,)`` int32 true lengths.
       im_rolled: ``(N, alphabet, W)`` int32 -- ``item_memory.rolled``.
       tie: ``(W,)`` int32 tie-break vector.
@@ -196,10 +224,13 @@ def fused_profile(tokens: torch.Tensor, lengths: torch.Tensor,
         raise ValueError("fused_profile: prototypes must be 16-byte aligned")
     # Scratch for the prototypes' row popcounts |b|, written by the launch.
     pc = torch.empty(s, dtype=torch.int32, device=tokens.device)
+    fg = (None if shared_tables(bb, cluster, length, n, alphabet, w)
+          else wide_tables(im_rolled))
     with torch.cuda.device(tokens.device):
         err = _lib().fused_profile_launch(
-            *map(_build.ptr, (tokens, lengths, im_rolled, tie, protos, pc,
-                              out)),
+            *map(_build.ptr, (tokens, lengths, im_rolled, tie)),
+            None if fg is None else _build.ptr(fg),
+            *map(_build.ptr, (protos, pc, out)),
             b, length, n, alphabet, w, s, dim, bb, cluster,
             _build.current_stream())
     if err != 0:

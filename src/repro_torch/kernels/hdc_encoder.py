@@ -14,6 +14,13 @@ Replaces the TPU kernel ``repro/kernels/hdc_encoder.py::_kernel``
   a gram per lane), counts with bit-sliced carry-save (Harley-Seal)
   counters instead of 32 separate ones, and decides the majority with a
   bit-sliced comparison, never unpacking a counter.
+* Alphabets above 4 (up to 65,536) take the wide path: 16-bit symbols,
+  and the pair table split into its two separable halves ``F[a] =
+  imr[0][a]`` shifted by one word and ``G[b] = imr[n-1][b]`` (2A rows
+  instead of A^2), so a gram costs two 16-byte loads and one more XOR.
+  The tables sit in shared memory when they fit there; else the wrapper
+  lays them out in global memory (:func:`wide_tables`) and the kernel
+  reads them through L2.  The 2-bit path of A <= 4 is unchanged.
 
 :func:`hdc_encode` launches the kernel for CUDA tensors and counts the
 launch in ``hdc_encode.launches``; for CPU tensors it runs
@@ -34,8 +41,10 @@ from repro_torch.kernels import _build
 MAX_SMEM_BYTES = 232448
 #: Most grams a read may have (the kernel keeps at most 20 counter planes).
 MAX_GRAMS = 2 ** 20 - 1
-#: Largest alphabet the kernel takes (tokens are staged as 2-bit symbols).
-MAX_ALPHABET = 4
+#: Largest alphabet the kernels take (the wide path stages 16-bit symbols).
+MAX_ALPHABET = 2 ** 16
+#: Largest alphabet of the 2-bit path; larger ones take the wide path.
+NARROW_ALPHABET = 4
 #: Elements of one gram chunk's unpacked bits in the plain version.
 _PLAIN_CHUNK_ELEMS = 2 ** 28
 
@@ -75,20 +84,59 @@ def staged_words(read_len: int) -> tuple[int, int]:
             _round16(read_len // 8 + 2))
 
 
-def smem_bytes(read_len: int, n: int) -> int:
-    """Shared memory of one block (``hdc_encode_smem_bytes`` in C): the
-    pair table of 2 runs of 128 words (16 rows), the runs' ``(n, 4)``
-    edge columns, and 4 reads' staged tokens and pair ids."""
-    tw, pw = staged_words(read_len)
-    return (16 * 256 + _round16(2 * n * 4) + 4 * tw + 4 * pw) * 4
+def wide_tok_words(read_len: int) -> int:
+    """Words of one read's staged 16-bit symbols on the wide path
+    (``wide_tok_words`` in C)."""
+    return _round16(read_len // 2 + 18)
+
+
+def wide_table_stride(w: int) -> int:
+    """Row stride, in words, of :func:`wide_tables` (``wide_table_stride``
+    in C): W + 256 rounded to 16 bytes."""
+    return _round16(w + 256)
+
+
+def smem_bytes(read_len: int, n: int, alphabet: int = NARROW_ALPHABET,
+               shared_tables: bool = True) -> int:
+    """Shared memory of one block (``hdc_encode_smem_bytes`` in C).
+
+    A <= 4: the pair table of 2 runs of 128 words (16 rows), the runs'
+    ``(n, 4)`` edge columns, and 4 reads' staged tokens and pair ids.
+    A > 4: 4 reads' 16-bit symbols and, with ``shared_tables``, the F / G
+    tables of the 256 words (2A rows) and the runs' ``(n, A)`` edge
+    columns."""
+    if alphabet <= NARROW_ALPHABET:
+        tw, pw = staged_words(read_len)
+        return (16 * 256 + _round16(2 * n * 4) + 4 * tw + 4 * pw) * 4
+    words = 4 * wide_tok_words(read_len)
+    if shared_tables:
+        words += 2 * alphabet * 256 + _round16(2 * n * alphabet)
+    return words * 4
+
+
+def shared_tables(read_len: int, n: int, alphabet: int) -> bool:
+    """Whether the wide path's tables fit in the encoder's shared memory
+    (else :func:`hdc_encode` reads them from :func:`wide_tables`)."""
+    return smem_bytes(read_len, n, alphabet, True) <= MAX_SMEM_BYTES
+
+
+def wide_tables(im_rolled: torch.Tensor) -> torch.Tensor:
+    """The wide path's F / G tables in global memory, ``(2A, Wx)`` int32
+    with ``Wx = wide_table_stride(W)``: row ``a`` is ``imr[0][a]`` shifted
+    left by one word, row ``A + b`` is ``imr[n-1][b]``, each wrapped mod W
+    over Wx words, so any block's run of words is one aligned stretch."""
+    n, _, w = im_rolled.shape
+    cols = torch.arange(wide_table_stride(w), device=im_rolled.device)
+    return torch.cat([im_rolled[0][:, (cols + 1) % w],
+                      im_rolled[n - 1][:, cols % w]]).contiguous()
 
 
 def check_shape(name: str, read_len: int, n: int, alphabet: int) -> None:
     """Raise ``ValueError`` for what the encode kernels do not take."""
     if not 1 <= alphabet <= MAX_ALPHABET:
-        raise ValueError(f"{name}: the kernel stages tokens as 2-bit "
-                         f"symbols; alphabets of 1 to {MAX_ALPHABET} symbols "
-                         f"are supported, got {alphabet}")
+        raise ValueError(f"{name}: the kernels stage symbols in 16 bits; "
+                         f"alphabets of 1 to {MAX_ALPHABET} symbols are "
+                         f"supported, got {alphabet}")
     if n < 1:
         raise ValueError(f"{name}: n must be positive, got {n}")
     if read_len - n + 1 > MAX_GRAMS:
@@ -100,9 +148,9 @@ def _lib():
     lib = _build.library("hdc_encoder")
     if not getattr(lib, "_typed", False):
         lib.hdc_encode_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.hdc_encode_launch.restype = ctypes.c_int
-        lib.hdc_encode_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.hdc_encode_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.hdc_encode_smem_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
@@ -135,10 +183,10 @@ def hdc_encode(tokens: torch.Tensor, lengths: torch.Tensor,
     """Encode a batch of symbol sequences into packed HD vectors.
 
     Args:
-      tokens: ``(B, L)`` int32 symbol ids in [0, alphabet), alphabet <= 4
-        (the kernel stages 2-bit symbols).  Ids outside that range are
-        the caller's error: the kernel clamps them into it, the plain
-        version indexes the item memory with them as given.
+      tokens: ``(B, L)`` int32 symbol ids in [0, alphabet), alphabet <=
+        65,536 (2-bit symbols up to 4, 16-bit ones above).  Ids outside
+        that range are the caller's error: the kernel clamps them into
+        it, the plain version indexes the item memory with them as given.
       lengths: ``(B,)`` int32 true lengths.
       im_rolled: ``(N, alphabet, W)`` int32 -- ``item_memory.rolled``.
       tie: ``(W,)`` int32 tie-break vector.
@@ -153,7 +201,9 @@ def hdc_encode(tokens: torch.Tensor, lengths: torch.Tensor,
     _check(tokens, lengths, im_rolled, tie)
     n, alphabet, w = im_rolled.shape
     b, length = tokens.shape
-    smem = smem_bytes(length, n)
+    in_smem = alphabet <= NARROW_ALPHABET or shared_tables(length, n,
+                                                          alphabet)
+    smem = smem_bytes(length, n, alphabet, in_smem)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"hdc_encode: reads of {length} tokens with n={n} need {smem} "
@@ -161,9 +211,11 @@ def hdc_encode(tokens: torch.Tensor, lengths: torch.Tensor,
     out = torch.empty((b, w), dtype=torch.int32, device=tokens.device)
     if b == 0:
         return out
+    fg = None if in_smem else wide_tables(im_rolled)
     with torch.cuda.device(tokens.device):
         err = _lib().hdc_encode_launch(
-            *map(_build.ptr, (tokens, lengths, im_rolled, tie, out)),
+            *map(_build.ptr, (tokens, lengths, im_rolled, tie)),
+            None if fg is None else _build.ptr(fg), _build.ptr(out),
             b, length, n, alphabet, w, _build.current_stream())
     if err != 0:
         raise RuntimeError(f"hdc_encode: kernel launch failed with CUDA "

@@ -4,8 +4,8 @@
       (same fields and fingerprints as ``repro``'s);
   :mod:`~repro_torch.pipeline.backend`  the backend registry
       (``reference``, ``reference_packed``, ``cuda_matmul``,
-      ``cuda_packed``, ``cuda_fused``) and each backend's declared
-      options (``options_schema``);
+      ``cuda_packed``, ``cuda_fused``, ``sharded``) and each backend's
+      declared options (``options_schema``);
   :mod:`~repro_torch.pipeline.source`   streaming read input;
   :class:`~repro_torch.pipeline.session.ProfilingSession`  the facade.
 """
@@ -22,6 +22,8 @@ from repro_torch.pipeline.source import (ArraySource, FastqSource,
                                          as_source, prefetch)
 from repro_torch.pipeline import refdb_store
 from repro_torch.pipeline.fused import CudaFusedBackend
+from repro_torch.pipeline.sharded import (ShardedBackend, pad_refdb,
+                                          per_device_bytes, place_refdb)
 from repro_torch.pipeline.session import BatchResult, ProfilingSession
 
 __all__ = [
@@ -32,4 +34,5 @@ __all__ = [
     "ArraySource", "FastqSource", "IterableSource", "ReadBatch",
     "ReadSource", "SyntheticSource", "as_source", "prefetch",
     "BatchResult", "CudaFusedBackend", "ProfilingSession", "refdb_store",
+    "ShardedBackend", "pad_refdb", "per_device_bytes", "place_refdb",
 ]

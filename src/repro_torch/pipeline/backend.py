@@ -20,6 +20,9 @@ Registered backends:
                    tensor-core search kernel (``hamming_am``).
   cuda_fused       the hand-written CUDA encoder and fused encode->search
                    kernels (:mod:`repro_torch.pipeline.fused`).
+  sharded          any of the above with the prototype axis split over the
+                   ranks of a process group, one shard a rank
+                   (:mod:`repro_torch.pipeline.sharded`).
 
 Every backend takes ``device`` (``None``: ``cuda``, raising without a
 GPU) and keeps its item memory and tie-break vector there.
@@ -67,6 +70,7 @@ _SCHEMAS: dict[str, OptionsSchema] = {}
 #: Backends that register themselves when their module is imported.
 _LAZY_MODULES: dict[str, str] = {
     "cuda_fused": "repro_torch.pipeline.fused",
+    "sharded": "repro_torch.pipeline.sharded",
 }
 
 
@@ -120,7 +124,8 @@ def resolve_backend(name: str, config: ProfilerConfig, *,
 
 
 class _BackendBase:
-    """Shared state: options check, device, item memory, tie-break vector."""
+    """Shared state: options check, device, item memory, tie-break vector
+    (drawn in the config's threefry mode)."""
 
     name = "abstract"
 
@@ -132,8 +137,11 @@ class _BackendBase:
         self.config = config
         self.space = config.space
         self.device = resolve_device(device)
-        self.im = item_memory.make_item_memory(self.space, device=self.device)
-        self.tie = item_memory.make_tie_break(self.space, device=self.device)
+        mode = config.threefry_partitionable
+        self.im = item_memory.make_item_memory(self.space, device=self.device,
+                                               partitionable=mode)
+        self.tie = item_memory.make_tie_break(self.space, device=self.device,
+                                              partitionable=mode)
 
 
 @register_backend("reference")
@@ -180,9 +188,9 @@ class _CudaKernelBackendBase(_BackendBase):
     """The CUDA encoder kernel + one standalone AM-search kernel (the
     kernels' plain torch versions on CPU tensors).
 
-    The encode kernels stage tokens as 2-bit symbols, so a space whose
-    alphabet exceeds 4 is refused here, on every device, rather than at
-    the first launch.
+    The encode kernels take alphabets of 1 to 65,536 symbols (2-bit
+    symbols up to 4, the wide path above); a space outside that range is
+    refused here, on every device, rather than at the first launch.
     """
 
     formulation = "matmul"

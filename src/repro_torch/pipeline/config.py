@@ -6,6 +6,15 @@ Counterpart of :mod:`repro.pipeline.config`, field for field, so
 packages and RefDB cache keys agree.  The device is not a field: it
 belongs to the session and the backend.
 
+One field is the port's own: ``threefry_partitionable``, the
+``jax_threefry_partitionable`` mode whose words the item memory and the
+tie vector reproduce.  ``repro`` takes that mode from the installed jax
+(partitionable from jax 0.5 on, not on the 0.4 line); the port carries it
+in the config.  At its default (True) the field is left out of
+:meth:`~ProfilerConfig.to_dict`, so the JSON and both fingerprints stay
+``repro``'s; at False it joins them, so stores of the two modes never
+share a cache key.
+
 One config names everything a run depends on — the HD space (step 1), the
 RefDB windowing (step 2), the batch shape of the streamed query path
 (steps 3-4), and the *backend* that executes encode/agreement.  It is a
@@ -54,6 +63,10 @@ class ProfilerConfig:
         backend_options *join* the RefDB cache key: the refined
         prototypes depend on the device they were trained against.
       noise_aware_iters: retraining passes when ``noise_aware_refdb``.
+      threefry_partitionable: the ``jax_threefry_partitionable`` mode the
+        item memory and tie vector are drawn in (True: jax 0.5 and later;
+        False: the 0.4 line).  It must match the jax that wrote a
+        ``repro`` store this config reads.
     """
 
     space: HDSpace = HDSpace()
@@ -64,6 +77,7 @@ class ProfilerConfig:
     backend_options: tuple[tuple[str, OptionValue], ...] = ()
     noise_aware_refdb: bool = False
     noise_aware_iters: int = 2
+    threefry_partitionable: bool = True
 
     def __post_init__(self) -> None:
         if self.window < 1:
@@ -76,6 +90,8 @@ class ProfilerConfig:
             raise ValueError("backend must be a non-empty backend name")
         if self.noise_aware_iters < 1:
             raise ValueError("noise_aware_iters must be >= 1")
+        if not isinstance(self.threefry_partitionable, bool):
+            raise ValueError("threefry_partitionable must be a bool")
         object.__setattr__(self, "backend_options",
                            _canonical_options(self.backend_options))
 
@@ -96,7 +112,12 @@ class ProfilerConfig:
 
     # -- serialization ------------------------------------------------------
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)  # recurses into the HDSpace field
+        """The fields as JSON-able values (``repro``'s dict, plus
+        ``threefry_partitionable`` only when it is False)."""
+        d = dataclasses.asdict(self)  # recurses into the HDSpace field
+        if self.threefry_partitionable:
+            del d["threefry_partitionable"]
+        return d
 
     def to_json(self, indent: int | None = None) -> str:
         return json.dumps(self.to_dict(), sort_keys=True, indent=indent)
@@ -126,7 +147,8 @@ class ProfilerConfig:
     def refdb_fingerprint(self) -> str:
         """Stable hash over the fields that determine RefDB *content*.
 
-        Covers space, window and canonicalized stride — everything that
+        Covers space, window and canonicalized stride (and the threefry
+        mode when it is not the default) — everything that
         can change the built prototypes (the old cache key ignored stride
         and silently served wrong databases).  ``batch_size`` (a host
         batching knob) and ``backend``/``backend_options`` (every backend's
@@ -142,6 +164,8 @@ class ProfilerConfig:
         """
         d = {"space": dataclasses.asdict(self.space), "window": self.window,
              "stride": self.effective_stride}
+        if not self.threefry_partitionable:
+            d["threefry_partitionable"] = False
         if self.noise_aware_refdb:
             d["noise_aware"] = {"backend": self.backend,
                                 "backend_options": list(self.backend_options),

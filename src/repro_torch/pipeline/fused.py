@@ -139,7 +139,8 @@ class CudaFusedBackend(_CudaKernelBackendBase):
                 tiles, _ = autotune.tune(
                     self.space, batch=self.config.batch_size,
                     num_prototypes=num_prototypes, read_len=read_len,
-                    path=self._autotune_cache, device=self.device)
+                    path=self._autotune_cache, device=self.device,
+                    partitionable=self.config.threefry_partitionable)
                 self.tuned[key] = tiles
                 self.tiles = dict(tiles)
         return tiles

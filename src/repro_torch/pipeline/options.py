@@ -81,6 +81,9 @@ class OptionsSchema:
 
     backend: str
     options: tuple[Option, ...] = ()
+    #: unknown options are forwarded to a wrapped backend's schema instead
+    #: of failing here (the ``sharded`` wrapper).
+    passthrough: bool = False
 
     def __post_init__(self) -> None:
         names = [o.name for o in self.options]
@@ -124,15 +127,31 @@ class OptionsSchema:
                     f"got {value!r}")
 
     def validate(self, options: Mapping[str, object]) -> dict[str, object]:
-        """Check every provided option; returns them as a dict."""
-        out: dict[str, object] = {}
+        """Check every provided option; returns the ones this schema
+        declares (with ``passthrough``, the rest are :meth:`split` off for
+        the wrapped backend)."""
+        return self.split(options)[0]
+
+    def split(self, options: Mapping[str, object]
+              ) -> tuple[dict[str, object], dict[str, object]]:
+        """Split provided options into ``(own, rest)`` after checking.
+
+        ``own`` holds the validated options this schema declares; ``rest``
+        holds the remainder -- empty unless ``passthrough`` (a non-empty
+        remainder without passthrough raises the uniform unknown error).
+        """
+        own: dict[str, object] = {}
+        rest: dict[str, object] = {}
         for name, value in dict(options).items():
             opt = self.option(name)
             if opt is None:
+                if self.passthrough:
+                    rest[name] = value
+                    continue
                 raise self.unknown_error(name)
             self.check_value(opt, value)
-            out[name] = value
-        return out
+            own[name] = value
+        return own, rest
 
     def parse_cli(self, name: str, raw: str) -> object:
         """Coerce a ``--backend-option`` raw string by the declared kind."""

@@ -8,8 +8,11 @@ arrays -- ``prototypes`` as ``uint32``, ``proto_species`` and
 ``manifest`` key (``magic``, ``format_version``, ``refdb_fingerprint``,
 ``genomes_digest``, ``num_species``, ``num_prototypes``, ``dim_words``,
 ``species_names``, ``genome_lengths``, the content-determining config
-fields the session passes and, on the serving registry's snapshots,
-``version`` / ``parent_version`` / ``delta``).
+fields the session passes (:func:`config_fields`: space, window, stride
+and, the port's own, ``threefry_partitionable``) and, on the serving
+registry's snapshots, ``version`` / ``parent_version`` / ``delta``).
+``repro`` ignores manifest fields it does not know, so the port's
+entries load there too.
 
 Writes are atomic (a same-directory temp file published with
 ``os.replace``).  Loads are tolerant: any undecodable entry -- a legacy
@@ -20,6 +23,7 @@ cache miss and rebuild.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -37,6 +41,27 @@ from repro_torch.device import resolve_device
 FORMAT_VERSION = 1
 
 _MAGIC = "demeter-refdb"
+
+
+def config_fields(config, **extra) -> dict:
+    """The content-determining config fields a manifest records: space,
+    window, stride and the threefry mode of the item memory."""
+    return {"space": dataclasses.asdict(config.space),
+            "window": config.window, "stride": config.effective_stride,
+            "threefry_partitionable": config.threefry_partitionable,
+            **extra}
+
+
+def mode_matches(m: dict | None, partitionable: bool) -> bool:
+    """Whether a manifest's recorded threefry mode is ``partitionable``.
+
+    A manifest without the field was written by ``repro``, whose
+    manifests record no mode: it is taken to be in the reader's mode (the
+    same limit as ``repro``'s own cache key).  A missing or unreadable
+    manifest matches too: :func:`load` decides about it."""
+    if m is None or "threefry_partitionable" not in m:
+        return True
+    return m["threefry_partitionable"] is partitionable
 
 
 def save(path: str | pathlib.Path, db: RefDB, *,

@@ -11,6 +11,10 @@ backend on one device and drives the whole pipeline::
 ``device=None`` means ``cuda``; without a GPU the session raises unless
 the caller passes ``device="cpu"``.  The noise-aware RefDB refinement of
 ``repro`` is not ported yet.
+
+Every way a session acquires a RefDB (build, cache load, adopt) ends in
+the backend's ``place_refdb`` hook when it has one: the ``sharded``
+backend keeps only this rank's share of the prototype rows there.
 """
 
 from __future__ import annotations
@@ -106,13 +110,14 @@ class ProfilingSession:
         """Encode the reference genomes into the AM through the backend."""
         self._require_naive_refdb()
         db = refdb_store.build_streaming(genomes, self._builder())
-        self.refdb = db
+        self.refdb = self._place(db)
         self.refdb_loaded_from_cache = False
-        return db
+        return self.refdb
 
     def adopt_refdb(self, db: RefDB) -> RefDB:
-        """Make an externally built/loaded RefDB this session's database."""
-        self.refdb = db.to(self.device)
+        """Make an externally built/loaded RefDB this session's database
+        (moved to the session's device, then placed by the backend)."""
+        self.refdb = self._place(db.to(self.device))
         self.refdb_loaded_from_cache = False
         return self.refdb
 
@@ -130,28 +135,33 @@ class ProfilingSession:
         """Load the RefDB from the content-keyed cache, or build and cache it.
 
         The store format is ``repro``'s, so an entry either package wrote
-        serves the other.
+        serves the other.  The port records its threefry mode in the
+        manifests it writes; an entry whose recorded mode is not this
+        config's is a miss (rebuilt), and an entry with no recorded mode
+        (written by ``repro``, whose manifests do not carry one) is taken
+        to be in this config's mode.
         """
         if cache_dir is None:
             return self.build_refdb(genomes)
         self._require_naive_refdb()
         cache = self.refdb_cache_path(cache_dir, genomes)
         self.refdb_cache_file = cache
-        db = refdb_store.load(cache, device=self.device)
+        db = None
+        if refdb_store.mode_matches(refdb_store.manifest(cache),
+                                    self.config.threefry_partitionable):
+            db = refdb_store.load(cache, device=self.device)
         if db is not None:
-            self.refdb = db
+            self.refdb = self._place(db)
             self.refdb_loaded_from_cache = True
-            return db
+            return self.refdb
         db = refdb_store.build_streaming(
             genomes, self._builder(), path=cache,
             refdb_fingerprint=self.config.refdb_fingerprint(),
             genomes_digest=_genomes_digest(genomes),
-            config_fields={"space": dataclasses.asdict(self.space),
-                           "window": self.config.window,
-                           "stride": self.config.effective_stride})
-        self.refdb = db
+            config_fields=refdb_store.config_fields(self.config))
+        self.refdb = self._place(db)
         self.refdb_loaded_from_cache = False
-        return db
+        return self.refdb
 
     def _require_naive_refdb(self) -> None:
         if self.config.noise_aware_refdb:
@@ -167,8 +177,19 @@ class ProfilingSession:
     def classify_queries(self, queries: torch.Tensor,
                          refdb: RefDB | None = None
                          ) -> classifier.ReadClassification:
-        """AM search + threshold over pre-encoded ``(B, W)`` query vectors."""
+        """AM search + threshold over pre-encoded ``(B, W)`` query vectors.
+
+        A backend with the ``species_scores`` capability (``sharded``:
+        agreement and the species max on each shard, merged across the
+        shards) skips the per-prototype agreement; both paths are
+        bit-identical.
+        """
         db = self._require_refdb(refdb)
+        fused = getattr(self.backend, "species_scores", None)
+        if fused is not None:
+            scores = fused(queries, db.prototypes, db.proto_species,
+                           db.num_species)
+            return classifier.from_scores(scores, self.space.threshold_bits)
         agree = self.backend.agreement(queries, db.prototypes)
         return classifier.from_agreement(
             agree, db.proto_species, db.num_species, self.space.threshold_bits)
@@ -248,6 +269,13 @@ class ProfilingSession:
             self._m_transfers.inc(n, backend=self.config.backend)
 
     # ----------------------------------------------------------------------
+    def _place(self, db: RefDB) -> RefDB:
+        """Run the backend's device-placement step, if it has one (the
+        ``sharded`` backend pads the prototype axis to its shards and
+        keeps this rank's rows); other backends pass the db through."""
+        place = getattr(self.backend, "place_refdb", None)
+        return db if place is None else place(db)
+
     def _to_device(self, tokens, lengths) -> tuple[torch.Tensor, torch.Tensor]:
         def put(x):
             if isinstance(x, torch.Tensor):

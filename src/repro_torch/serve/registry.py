@@ -473,14 +473,20 @@ class RefDBRegistry:
     @classmethod
     def open(cls, root: str | pathlib.Path, *,
              device: str | torch.device | None = None,
-             metrics: obs.MetricsRegistry | None = None
+             metrics: obs.MetricsRegistry | None = None,
+             threefry_partitionable: bool | None = None
              ) -> "RefDBRegistry":
         """Reopen a persisted registry: every database's CURRENT version.
 
         Only the current snapshot of each database is loaded (onto
         ``device``; older versions stay on disk for audit via their
         manifests); the version counter continues from the published
-        chain.  A root written by ``repro``'s registry opens here too.
+        chain.  A root written by ``repro``'s registry opens here too:
+        its snapshots record no threefry mode, so its databases are
+        served in ``threefry_partitionable`` (None: the pointer's config's,
+        the default True), which must be the mode of the jax that wrote
+        it.  The port's snapshots record their mode; one whose mode is not
+        its pointer's config's is skipped as a defect.
         """
         root = pathlib.Path(root)
         reg = cls(root, device=device, metrics=metrics)
@@ -493,11 +499,19 @@ class RefDBRegistry:
                 continue
             name = meta["database"]
             path = pointer.parent / meta["file"]
+            config = ProfilerConfig.from_dict(meta["config"])
+            m = refdb_store.manifest(path) or {}
+            if "threefry_partitionable" in m:   # written by the port
+                if not refdb_store.mode_matches(
+                        m, config.threefry_partitionable):
+                    continue                  # snapshot of another mode
+            elif threefry_partitionable is not None:   # written by repro
+                config = dataclasses.replace(
+                    config, threefry_partitionable=threefry_partitionable)
             db = refdb_store.load(path, device=reg.device)
             if db is None:
                 continue                      # defect reads as absent
-            m = refdb_store.manifest(path) or {}
-            entry = _Entry(name, ProfilerConfig.from_dict(meta["config"]))
+            entry = _Entry(name, config)
             snap = RefDBSnapshot(
                 database=name, version=int(meta["version"]), db=db,
                 parent_version=m.get("parent_version"),
@@ -545,10 +559,8 @@ class RefDBRegistry:
                 path, db,
                 refdb_fingerprint=c.refdb_fingerprint(),
                 genomes_digest=genomes_digest,
-                config_fields={"space": dataclasses.asdict(c.space),
-                               "window": c.window,
-                               "stride": c.effective_stride,
-                               "database": entry.name},
+                config_fields=refdb_store.config_fields(
+                    c, database=entry.name),
                 version=version, parent_version=parent, delta=delta)
             self._flip_pointer(d, entry, version, path.name)
         snap = RefDBSnapshot(database=entry.name, version=version, db=db,

@@ -19,7 +19,8 @@ import warnings
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch.core.hd_space import HDSpace
 from repro_torch.genomics import synth
@@ -312,9 +313,14 @@ def pipeline_setup(tmp_path_factory):
     expected = js.profile(JaxArraySource(sample.tokens,
                                          sample.lengths)).to_json()
 
+    import jax
+
+    mode = bool(jax.config.jax_threefry_partitionable)
+
     def cfg(backend, **kw):
         return ProfilerConfig(space=HDSpace(**space), window=256,
-                              batch_size=8, backend=backend, **kw)
+                              batch_size=8, backend=backend,
+                              threefry_partitionable=mode, **kw)
 
     return cfg, sample, cache, expected
 

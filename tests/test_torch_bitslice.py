@@ -24,7 +24,8 @@ the tolerance is exact equality.
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch import convert
 from repro_torch.core import bitops, item_memory
@@ -204,6 +205,16 @@ def _repro():
     return jnp, jax_im, Space, kops, ref
 
 
+def _jax_mode() -> bool:
+    """The installed jax's threefry mode (``repro`` draws its item memory
+    in it, so the port's parity cases take it too); True without jax."""
+    try:
+        import jax
+    except ImportError:
+        return True
+    return bool(jax.config.jax_threefry_partitionable)
+
+
 def _lengths_for(ms, n):
     return np.asarray(ms, np.int32) + (n - 1) * (np.asarray(ms) > 0)
 
@@ -276,8 +287,9 @@ def test_rolling_bitsliced_encoder_matches_repro(dim, n, read_len, ms, span):
     jnp, jax_im, Space, kops, ref = _repro()
     js = Space(dim=dim, ngram=n)
     im, tie = jax_im.make_item_memory(js), jax_im.make_tie_break(js)
-    ts = HDSpace(dim=dim, ngram=n)
-    tim, ttie = item_memory.make_item_memory(ts), item_memory.make_tie_break(ts)
+    ts, mode = HDSpace(dim=dim, ngram=n), _jax_mode()
+    tim = item_memory.make_item_memory(ts, partitionable=mode)
+    ttie = item_memory.make_tie_break(ts, partitionable=mode)
     w = dim // 32
     rng = np.random.default_rng(dim + n + read_len)
     lens = _lengths_for(ms, n)

@@ -12,7 +12,8 @@ tests (which skip there) and the module itself needs only torch.
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch import convert
 from repro_torch.core import item_memory
@@ -48,9 +49,20 @@ def _repro():
     return jnp, assoc_memory, im, Space, kops, ref
 
 
+def _jax_mode() -> bool:
+    """The installed jax's threefry mode (``repro`` draws its item memory
+    in it, so the port's parity cases take it too); True without jax."""
+    try:
+        import jax
+    except ImportError:
+        return True
+    return bool(jax.config.jax_threefry_partitionable)
+
+
 def _torch_state(dim, n):
-    ts = HDSpace(dim=dim, ngram=n)
-    return ts, item_memory.make_item_memory(ts), item_memory.make_tie_break(ts)
+    ts, mode = HDSpace(dim=dim, ngram=n), _jax_mode()
+    return (ts, item_memory.make_item_memory(ts, partitionable=mode),
+            item_memory.make_tie_break(ts, partitionable=mode))
 
 
 def _state(dim, n):
@@ -208,8 +220,11 @@ def test_fused_tile_plan_checks_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         ops.fused_tile_plan(256, 10, 1280, bb=32, cluster=1, ngram=16,
                             read_len=150)
-    with pytest.raises(ValueError, match="2-bit"):
-        ops.fused_tile_plan(256, 10, 16, alphabet=5)
+    # alphabets above 4 take the wide path; past 65,536 they are refused
+    ops.fused_tile_plan(256, 10, 16, alphabet=5)
+    for alphabet in (0, 2 ** 16 + 1):
+        with pytest.raises(ValueError, match="alphabets of 1 to 65536"):
+            ops.fused_tile_plan(256, 10, 16, alphabet=alphabet)
     with pytest.raises(ValueError, match="bb must be one of"):
         ops.fused_tile_plan(256, 10, 16, bb=3)
     with pytest.raises(ValueError, match="cluster must be one of"):
@@ -260,10 +275,15 @@ def test_shared_memory_formula_matches_the_source(cuda):
     fus = fused_profile._lib()
     enc = hdc_encoder._lib()
     for length, n in ((150, 16), (8192, 16), (7, 3), (300, 5)):
-        for bb, cluster, w in ((16, 4, 1280), (16, 8, 1280), (16, 1, 33),
-                               (16, 8, 16), (32, 8, 1280), (32, 2, 1280),
-                               (16, 1, 1280), (32, 1, 18)):
-            assert fus.fused_profile_smem_bytes(bb, cluster, length, n, 4, w) \
-                == fused_profile.smem_bytes(bb, cluster, length, n, 4, w)
-        assert enc.hdc_encode_smem_bytes(length, n, 4) \
-            == hdc_encoder.smem_bytes(length, n)
+        for a, tables in ((4, 1), (5, 1), (5, 0), (20, 1), (20, 0),
+                          (300, 0)):
+            for bb, cluster, w in ((16, 4, 1280), (16, 8, 1280),
+                                   (16, 1, 33), (16, 8, 16), (32, 8, 1280),
+                                   (32, 2, 1280), (16, 1, 1280),
+                                   (32, 1, 18)):
+                assert fus.fused_profile_smem_bytes(
+                    bb, cluster, length, n, a, w, tables) \
+                    == fused_profile.smem_bytes(bb, cluster, length, n, a, w,
+                                                bool(tables))
+            assert enc.hdc_encode_smem_bytes(length, n, a, tables) \
+                == hdc_encoder.smem_bytes(length, n, a, bool(tables))

@@ -14,7 +14,8 @@ import math
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch import obs
 from repro_torch.core.assoc_memory import build_refdb
@@ -31,8 +32,19 @@ SP = HDSpace(**SPACE)
 SPEC = synth.CommunitySpec(num_species=4, genome_len=6_000, seed=11)
 
 
+def _jax_mode() -> bool:
+    """The installed jax's threefry mode (``repro`` draws its item memory
+    in it, so the port's parity cases take it too); True without jax."""
+    try:
+        import jax
+    except ImportError:
+        return True
+    return bool(jax.config.jax_threefry_partitionable)
+
+
 def _config(**kw):
     kw.setdefault("space", SP)
+    kw.setdefault("threefry_partitionable", _jax_mode())
     kw.setdefault("window", 1024)
     kw.setdefault("batch_size", 16)
     return ProfilerConfig(**kw)
@@ -45,7 +57,8 @@ def sample():
 
 @pytest.fixture(scope="module")
 def refdb(sample):
-    return build_refdb(sample.genomes, SP, window=1024, device="cpu")
+    return build_refdb(sample.genomes, SP, window=1024, device="cpu",
+                       partitionable=_jax_mode())
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,9 @@ import time
 import numpy as np
 import pytest
 
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
 from repro.core import assoc_memory as jax_am
 from repro.core.hd_space import HDSpace as JaxSpace
 from repro.pipeline import ArraySource as JaxArraySource
@@ -38,8 +41,14 @@ SP = HDSpace(**SPACE)
 SPEC = synth.CommunitySpec(num_species=4, genome_len=6_000, seed=11)
 
 
+#: The installed jax's threefry mode: ``repro`` draws its item memory in
+#: it, so the port's configs take it too.
+MODE = bool(jax.config.jax_threefry_partitionable)
+
+
 def _config(**kw):
     kw.setdefault("space", SP)
+    kw.setdefault("threefry_partitionable", MODE)
     kw.setdefault("window", 1024)
     kw.setdefault("batch_size", 16)
     return ProfilerConfig(**kw)
@@ -50,7 +59,8 @@ def _registry(root, **kw):
 
 
 def _build(genomes):
-    return assoc_memory.build_refdb(genomes, SP, window=1024, device="cpu")
+    return assoc_memory.build_refdb(genomes, SP, window=1024, device="cpu",
+                                    partitionable=MODE)
 
 
 @pytest.fixture(scope="module")
@@ -347,7 +357,7 @@ def test_repro_registry_root_serves_in_the_port(tmp_path, sample, extra):
     want = [js.profile(JaxArraySource(s.tokens, s.lengths)).to_dict()
             for s in srcs]
 
-    reg = RefDBRegistry.open(root, device="cpu")
+    reg = RefDBRegistry.open(root, device="cpu", threefry_partitionable=MODE)
     cur = reg.current("food")
     assert cur.version == 2 and cur.parent_version == 1
     assert cur.delta == {"added": ["sp_new"], "removed": []}

@@ -20,7 +20,8 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch import convert
 from repro_torch.kernels import _search, am_matmul, hamming_am, ops
@@ -46,6 +47,16 @@ def _repro():
     import jax.numpy as jnp
     from repro.kernels import ops as kops, ref
     return jnp, kops, ref
+
+
+def _jax_mode() -> bool:
+    """The installed jax's threefry mode (``repro`` draws its item memory
+    in it, so the port's parity cases take it too); True without jax."""
+    try:
+        import jax
+    except ImportError:
+        return True
+    return bool(jax.config.jax_threefry_partitionable)
 
 
 def _packed(b, s, w, seed):
@@ -336,8 +347,9 @@ def test_profile_run_matches_repro(repro_cli_run, tmp_path, capsys,
                                    backend):
     want_json, want_out = repro_cli_run
     path = tmp_path / "report.json"
+    mode = [] if _jax_mode() else ["--no-threefry-partitionable"]
     profile_run.main([*FLAGS, "--backend", backend, "--device", "cpu",
-                      "--json", str(path)])
+                      "--json", str(path), *mode])
     out = capsys.readouterr().out
     assert json.loads(path.read_text()) == want_json
     assert _stable_lines(out) == _stable_lines(want_out)
@@ -350,12 +362,14 @@ def test_profile_run_lists_every_backend(capsys):
     names = [ln for ln in capsys.readouterr().out.splitlines()
              if not ln.startswith(" ")]
     assert names == ["cuda_fused", "cuda_matmul", "cuda_packed",
-                     "reference", "reference_packed"]
+                     "reference", "reference_packed", "sharded"]
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--shards", "2"], "ROADMAP queue 1 item 7"),
-    (["--mesh", "2"], "ROADMAP queue 1 item 7"),
+    # one rank here: two shards need two ranks (torchrun)
+    (["--shards", "2"], "num_shards must equal the world size 1"),
+    (["--mesh", "2"], "num_shards must equal the world size 1"),
+    (["--shards", "2", "--mesh", "3"], "--mesh 3 conflicts with --shards 2"),
     (["--noise-aware-refdb"], "ROADMAP queue 1 item 10"),
     (["--backend", "pallas_matmul"], "unknown backend 'pallas_matmul'"),
     (["--backend", "cuda_packed", "--backend-option", "bb=4"],

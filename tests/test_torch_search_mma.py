@@ -30,7 +30,8 @@ integer: the tolerance is exact equality.
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch import convert
 from repro_torch.core import bitops

@@ -20,6 +20,9 @@ import time
 import numpy as np
 import pytest
 
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
 from repro.core.hd_space import HDSpace as JaxSpace
 from repro.genomics import synth as jax_synth
 from repro.pipeline import ArraySource as JaxArraySource
@@ -39,10 +42,14 @@ SP = HDSpace(**SPACE)
 SPEC = dict(num_species=4, genome_len=6_000, seed=11)
 BACKENDS = ("cuda_fused", "reference")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+#: The installed jax's threefry mode: ``repro`` draws its item memory in
+#: it, so the port's configs take it too.
+MODE = bool(jax.config.jax_threefry_partitionable)
 
 
 def _config(**kw):
     kw.setdefault("space", SP)
+    kw.setdefault("threefry_partitionable", MODE)
     kw.setdefault("window", 1024)
     kw.setdefault("batch_size", 16)
     return ProfilerConfig(**kw)

@@ -15,7 +15,9 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
 
 from repro.core import assoc_memory as jax_am
 from repro.core import classifier as jax_cls
@@ -41,6 +43,9 @@ PORT_BACKENDS = ("reference", "reference_packed", "cuda_matmul",
                  "cuda_packed", "cuda_fused")
 #: The port's unfused kernel backends and their ``repro`` twins.
 TWINS = {"cuda_matmul": "pallas_matmul", "cuda_packed": "pallas_packed"}
+#: The installed jax's threefry mode: ``repro`` draws its item memory in
+#: it, so the port's configs take it too.
+MODE = bool(jax.config.jax_threefry_partitionable)
 
 
 def _jax_config(backend, **kw):
@@ -50,7 +55,18 @@ def _jax_config(backend, **kw):
 
 def _config(backend, **kw):
     return ProfilerConfig(space=HDSpace(**SPACE), backend=backend,
-                          **{**CONFIG, **kw})
+                          **{**CONFIG, "threefry_partitionable": MODE, **kw})
+
+
+@pytest.fixture
+def default_mode():
+    """jax in the port's default threefry mode (partitionable) for one
+    test: a store's cache key records no mode, so crossing stores between
+    the packages holds in the default mode."""
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    yield
+    jax.config.update("jax_threefry_partitionable", old)
 
 
 @pytest.fixture(scope="module")
@@ -168,10 +184,11 @@ def test_fingerprints_match_repro(kw):
     assert t.to_json() == j.to_json()
 
 
-def test_cache_path_matches_repro(tmp_path, community):
+def test_cache_path_matches_repro(tmp_path, community, default_mode):
     genomes = community[0]
     j = JaxSession(_jax_config("reference"))
-    t = ProfilingSession(_config("reference"), device="cpu")
+    t = ProfilingSession(_config("reference", threefry_partitionable=True),
+                         device="cpu")
     assert t.refdb_cache_path(tmp_path, genomes) == \
         j.refdb_cache_path(tmp_path, genomes)
 
@@ -199,11 +216,13 @@ def test_refdb_store_cross_loads(tmp_path, community):
         jax_store.manifest(tmp_path / "jax.npz")
 
 
-def test_session_cache_round_trip_through_repro_store(tmp_path, community):
+def test_session_cache_round_trip_through_repro_store(tmp_path, community,
+                                                     default_mode):
     genomes, toks, lens = community
     j = JaxSession(_jax_config("reference"))
     j.build_or_load_refdb(genomes, cache_dir=tmp_path)
-    t = ProfilingSession(_config("cuda_fused"), device="cpu")
+    t = ProfilingSession(_config("cuda_fused", threefry_partitionable=True),
+                         device="cpu")
     t.build_or_load_refdb(genomes, cache_dir=tmp_path)
     assert t.refdb_loaded_from_cache
     assert t.profile(ArraySource(toks, lens)).to_dict() == \
@@ -219,8 +238,10 @@ def test_from_repro_state_round_trips(community):
         np.asarray(jdb.proto_species), np.asarray(jdb.genome_lengths),
         jdb.species_names, device="cpu")
     ts = HDSpace(**SPACE)
-    assert torch.equal(tim, item_memory.make_item_memory(ts))
-    assert torch.equal(ttie, item_memory.make_tie_break(ts))
+    assert torch.equal(tim, item_memory.make_item_memory(
+        ts, partitionable=MODE))
+    assert torch.equal(ttie, item_memory.make_tie_break(
+        ts, partitionable=MODE))
     back = convert.to_repro_state(tim, ttie, tdb)
     np.testing.assert_array_equal(back["im"], np.asarray(im))
     np.testing.assert_array_equal(back["tie"], np.asarray(tie))
@@ -283,21 +304,6 @@ def test_cuda_fused_takes_batches_smaller_than_a_tile(jax_runs, community,
     s.build_refdb(genomes)
     assert s.profile(ArraySource(toks, lens)).to_dict() == \
         jax_runs["reference"][1]
-
-
-@pytest.mark.parametrize("backend", ["cuda_matmul", "cuda_packed",
-                                     "cuda_fused"])
-def test_cuda_backends_refuse_alphabets_above_four(backend):
-    """The encode kernels stage 2-bit symbols: a session over a larger
-    alphabet is refused when it is built, on every device."""
-    space = HDSpace(**SPACE, alphabet_size=5)
-    with pytest.raises(ValueError, match="alphabets of 1 to 4"):
-        ProfilingSession(ProfilerConfig(space=space, backend=backend),
-                         device="cpu")
-    ProfilingSession(ProfilerConfig(space=HDSpace(**SPACE, alphabet_size=4),
-                                    backend=backend), device="cpu")
-    ProfilingSession(ProfilerConfig(space=space, backend="reference"),
-                     device="cpu")
 
 
 def test_cuda_fused_shared_memory_limit_is_checked_at_construction():
