@@ -109,6 +109,27 @@ no result line):
              ``cuda_fused``, each building the RefDB), phase 3's reads:
              every report equal to phase 3's, with the MB each rank holds
              and the profile time.
+10. accel    the device model at phase 3's config, RefDB and reads: the
+             Threefry kernel against its plain version in both modes on
+             10 M draws and on one bank's full-width programming draws
+             (408.9 M uniforms and normals; bits and uniforms bit-exact,
+             normals within ``NORMAL_ULP``), and its full-width times
+             beside ``torch.randn``; ``pcm_sim`` at preset ``ideal``
+             (report equal to phase 3's); ``pcm_sim`` preset ``pcm`` and
+             ``racetrack_sim`` preset ``racetrack`` (two profiles with one
+             seed identical, another seed's agreement different; batch
+             0's read noise held against the plain version at the main
+             path's own inputs and timed; reads/s, ms a batch split into
+             bmm / noise / rest, fault census, ADC clips, precision and
+             recall; counters set to 0 just before each and read just
+             after: the encoder and ``threefry`` must launch); a noisy
+             session on the card against the CPU (full D, 2 species x
+             200 kbp, 256 reads, within the near-exact tolerance);
+             ``noise_aware_refdb`` on ``racetrack_sim`` (validated no
+             worse than the naive build), and at full D on the small
+             community with shift faults, where retraining must change a
+             prototype and the card must equal the CPU; and a three-point
+             ``noise_sweep`` over ``read_sigma`` on 2,048 reads.
 
 The last lines are one JSON object per kernel list and
 ``{"ok": true, "device": {...}}``.
@@ -116,6 +137,7 @@ The last lines are one JSON object per kernel list and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -158,6 +180,22 @@ ENCODE_OPS_PER_WORD_GRAM = 3
 #: [time] lines beside this run's.
 PRIOR_MS = {"hdc_encoder": 1.201, "fused_profile": 0.240,
            "hamming_am": 0.934, "am_matmul": 1.060}
+
+#: Integer operations of one Threefry-2x32 pair: 20 rounds of add, rotate
+#: (one funnel shift) and xor, and the six key injections (two adds each,
+#: the round constant folded into the key word); and per output word the
+#: xor of the pair and the shift and or of the float construction.
+THREEFRY_OPS_PER_PAIR = 72
+THREEFRY_OPS_PER_WORD = 3
+#: The stated gap between the Threefry kernel's normals and its plain
+#: version's: at most this many float32 ulp (both use the card's
+#: ``log1pf``; the plain version's fused steps are emulated in float64).
+NORMAL_ULP = 2
+#: Near-exact parity of a noisy read between the card and the CPU: the
+#: share of agreements that may differ, each by one count (the float32
+#: sums of noisy weights run in another order; tests/test_torch_accel.py
+#: measured 2.6e-5 of the CPU's against repro's).
+NEAR_EXACT_SHARE = 1e-3
 
 GENOME_LEN = 4_000_000
 NUM_SPECIES = 20
@@ -266,6 +304,24 @@ def bound_ms(nbytes: int, int_ops: int = 0, tensor_ops: int = 0,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ulp_gap(got, want, chunk: int = 1 << 26) -> tuple[int, int, float]:
+    """``(max ulp, count differing, max absolute error)`` of two float32
+    tensors of one shape, a chunk at a time (the int64 ulp distances of a
+    full-width draw would take 3.3 GB each)."""
+    import torch
+
+    a_all, b_all = got.reshape(-1), want.reshape(-1)
+    top = n_diff = 0
+    err = 0.0
+    for i in range(0, a_all.numel(), chunk):
+        a, b = a_all[i:i + chunk], b_all[i:i + chunk]
+        if not torch.isfinite(a).all():
+            fail("threefry: non-finite draws")
+        ulp = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+        top = max(top, int(ulp.max()))
+        n_diff += int((ulp > 0).sum())
+        err = max(err, float((a - b).abs().max()))
+    return top, n_diff, err
 
 
 def search_parity(name, q, p, dim, errs) -> None:
@@ -985,6 +1041,397 @@ def shard_phase(*, config, sample, db, main_report, card, out_dir,
         f"with start-up) | {card}")
 
 
+def accel_phase(*, config, sample, db, main_report, card, int_rate,
+                zero_counts, read_counts, rows) -> None:
+    """Phase 10: the device model at phase 3's width, config and reads."""
+    import torch
+
+    from repro_torch.accel import codesign, crossbar, sweep
+    from repro_torch.accel.device import DeviceConfig
+    from repro_torch.accel.substrate import f32
+    from repro_torch.core import bitops
+    from repro_torch.eval import score_profile
+    from repro_torch.genomics import synth
+    from repro_torch.core import threefry as threefry_core
+    from repro_torch.kernels import threefry
+    from repro_torch.pipeline import (ArraySource, ProfilerConfig,
+                                      ProfilingSession, SyntheticSource)
+
+    dev = torch.device("cuda")
+    space = config.space
+
+    # -- 10.1 the Threefry kernel against its plain version ---------------
+    # On 10 M draws a mode and epilogue, then at the main path's full width
+    # in each mode: one bank's programming draws (one key, 408.9 M uniforms,
+    # and 408.9 M normals scaled and added into the state as
+    # program_conductances adds them).  A batch's read noise is held at the
+    # main path's own inputs in 10.3.  Bits and uniforms must match
+    # exactly, normals within NORMAL_ULP; the kernels line's max_abs_err is
+    # the largest absolute gap of the normals held here and in 10.3.
+    rng = np.random.default_rng(1701)
+    n_draw = 10_000_000
+    t_tiles = -(-space.dim // 256)
+    s_pad = -(-db.num_prototypes // 256) * 256
+    full = t_tiles * s_pad * 256
+    key1 = threefry.keys_tensor(rng.integers(0, 2 ** 32, (1, 2),
+                                             dtype=np.uint32), dev)
+    keys_t = threefry.keys_tensor(rng.integers(0, 2 ** 32, (160, 2),
+                                               dtype=np.uint32), dev)
+    std = torch.rand(160, 250, device=dev) * 4
+    base = torch.randint(0, 257, (160, 250 * 250), device=dev).float()
+    pcm_dev = DeviceConfig.pcm()
+    prog_scale = pcm_dev.prog_sigma * pcm_dev.level_spacing_us
+    gaps = {}           # (mode, what) -> (max ulp, share differing, max abs)
+
+    def exact(what, part, m):
+        for epi in ("bits", "uniform"):
+            got = threefry.threefry_draw(key1, m, epilogue=epi,
+                                         partitionable=part)
+            want = threefry.threefry_draw_plain(key1, m, epilogue=epi,
+                                                partitionable=part)
+            bad = int((got != want).sum())
+            if bad:
+                fail(f"threefry {epi} {what} (partitionable={part}): {bad} "
+                     f"of {m:,} draws differ from the plain version")
+            del got, want
+
+    def hold(what, part, got, want):
+        top, n_diff, err = ulp_gap(got, want)
+        gaps[(part, what)] = (top, n_diff / got.numel(), err)
+        if top > NORMAL_ULP:
+            fail(f"threefry {what} (partitionable={part}): {top} ulp from "
+                 f"the plain version (stated: {NORMAL_ULP})")
+
+    def normal_into(k, m, acc, part, plain=False, **kw):
+        fn = threefry.threefry_draw_plain if plain else threefry.threefry_draw
+        return fn(k, m, epilogue="normal", partitionable=part, out=acc, **kw)
+
+    for part in (True, False):
+        exact("10 M", part, n_draw)
+        hold("normal 10 M", part,
+             threefry.threefry_draw(key1, n_draw, epilogue="normal",
+                                    partitionable=part),
+             threefry.threefry_draw_plain(key1, n_draw, epilogue="normal",
+                                          partitionable=part))
+        kw = {"scale": std, "inner": 250, "divisor": 19.9}
+        hold("read noise 160 x 62,500", part,
+             normal_into(keys_t, 250 * 250, base.clone(), part, **kw),
+             normal_into(keys_t, 250 * 250, base.clone(), part, plain=True,
+                         **kw))
+        exact("408.9 M", part, full)
+        g = (torch.randint(0, 2, (full,), device=dev, dtype=torch.float32)
+             * f32(pcm_dev.g_window_us) + f32(pcm_dev.g_off_us))
+        got = normal_into(key1, full, g.clone(), part, scale=prog_scale)
+        hold("program normal 408.9 M", part, got,
+             normal_into(key1, full, g, part, plain=True, scale=prog_scale))
+        del g, got
+        torch.cuda.empty_cache()
+    say(f"[accel] threefry == plain, both modes: bits and uniforms 0 "
+        f"mismatches on {n_draw:,} and on {full:,} draws (one bank's "
+        f"programming); normals max ulp / share differing / max abs "
+        + ", ".join(f"{'part' if p else 'orig'} {w} {g[0]} / {g[1]:.2e} / "
+                    f"{g[2]:.3g}" for (p, w), g in gaps.items())
+        + f" | {card}")
+    del base, std
+
+    times = {}
+    for part in (True, False):
+        times[part] = cuda_time_ms(lambda: threefry.threefry_draw(
+            key1, full, epilogue="normal", partitionable=part), reps=5)
+    randn_ms = cuda_time_ms(lambda: torch.randn(full, device=dev), reps=5)
+    say(f"[accel] threefry normal, {full:,} draws (one program bank): "
+        f"partitionable {times[True]:.3f} ms, original {times[False]:.3f} ms"
+        f" | torch.randn {randn_ms:.3f} ms | {card}")
+    b_rd = config.batch_size
+    kernel_row = {"library_ms": randn_ms}
+
+    # -- 10.2 pcm_sim at preset ideal == phase 3 --------------------------
+    def substrate_session(backend, **options):
+        # TF32 on before the backend is made: making it must turn TF32 off
+        # for the float32 products of noisy weights.
+        torch.backends.cuda.matmul.allow_tf32 = True
+        sess = ProfilingSession(dataclasses.replace(
+            config, backend=backend, backend_options=options))
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail(f"{backend} left TF32 on for the device model's float32 "
+                 f"products")
+        return sess
+
+    def timed_profile(sess, source):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sess.profile(source, refdb=db)
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t0
+
+    def program(sess):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.backend.program(db.prototypes)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ideal = substrate_session("pcm_sim")
+    zero_counts()
+    prog_s = program(ideal)
+    rep, secs = timed_profile(ideal, sample)
+    runs = read_counts()
+    if rep.to_dict() != main_report:
+        fail("pcm_sim at preset ideal: report differs from phase 3's")
+    if runs["hdc_encoder"] < 1 or runs["threefry"] != 0:
+        fail(f"pcm_sim ideal launched {runs}, want the encoder and no "
+             f"threefry")
+    say(f"[accel] pcm_sim ideal: report == phase 3's | banks "
+        f"{ideal.backend.banks_bytes / 1e6:.1f} MB ({t_tiles} x {s_pad} x "
+        f"256 a bank, read weights cached) | program {prog_s:.3f} s | "
+        f"profile {secs:.3f} s, {NUM_READS / secs:.0f} reads/s | launches "
+        f"{json.dumps(runs)} | {card}")
+    del ideal
+
+    # -- 10.3 the noisy presets: determinism, seeds, reads/s --------------
+    q_first = None
+    noisy_runs = {}
+    for backend, preset in (("pcm_sim", "pcm"),
+                            ("racetrack_sim", "racetrack")):
+        sess = substrate_session(backend, preset=preset)
+        be = sess.backend
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        prog_s = program(sess)
+        rep1, secs = timed_profile(sess, sample)
+        runs = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        noisy_runs[backend] = runs
+        if runs["hdc_encoder"] < 1 or runs["threefry"] < 1:
+            fail(f"{backend} {preset} did not run the encoder and threefry "
+                 f"kernels: {runs}")
+        rep2, secs2 = timed_profile(sess, sample)
+        if rep2.to_dict() != rep1.to_dict():
+            fail(f"{backend} {preset}: two profiles with one seed differ")
+        if q_first is None:
+            q_first = sess.encode_reads(sample.tokens[:b_rd],
+                                        sample.lengths[:b_rd])
+        other = substrate_session(backend, preset=preset, seed=0xACC_DE + 1)
+        a_seed = be.agreement(q_first, db.prototypes)
+        a_other = other.backend.agreement(q_first, db.prototypes)
+        if torch.equal(a_seed, a_other):
+            fail(f"{backend} {preset}: another seed read the same agreement")
+        del other
+        # ms a batch: the whole read, its two bank products, its two noise
+        # draws, and the rest (unpack, ADC, sums).
+        _, w_pos, w_neg = be._programmed
+        xcfg, sub = be.crossbar_config, be.substrate
+        read_ms = cuda_time_ms(lambda: crossbar.read_banks(
+            q_first, w_pos, w_neg, space.dim, xcfg, sub), reps=5)
+        qbits = bitops.unpack_bits(q_first).to(torch.float32)
+        q_pos = crossbar._to_row_tiles(qbits, 256)
+        q_neg = crossbar._to_row_tiles(1.0 - qbits, 256)
+        bmm_ms = cuda_time_ms(lambda: (torch.bmm(q_pos, w_pos.transpose(1, 2)),
+                                       torch.bmm(q_neg, w_neg.transpose(1, 2))),
+                              reps=5)
+        # Batch 0's read noise on the positive bank at the main path's own
+        # inputs (its partial counts, row-tile keys and active rows): the
+        # kernel against its plain version, then each timed.
+        cnt = torch.bmm(q_pos, w_pos.transpose(1, 2))
+        keys = threefry_core.split(
+            sub.read_event_key(0, crossbar.batch_digest(q_first)), t_tiles,
+            partitionable=sub.partitionable)
+        act = q_pos.sum(dim=-1)
+        noise_std, divisor = sub.read_noise_scale(act)
+        ktens = threefry.keys_tensor(keys, dev)
+        words = b_rd * s_pad
+        kw = {"epilogue": "normal", "partitionable": sub.partitionable,
+              "scale": noise_std, "inner": s_pad, "divisor": divisor}
+        got = sub.add_read_noise(keys, cnt.clone(), act)
+        if not torch.equal(got, threefry.threefry_draw(
+                ktens, words, out=cnt.clone(), **kw)):
+            fail(f"{backend}: the read-noise call held here is not the main "
+                 f"path's")
+        want = cnt.clone()
+        torch.cuda.empty_cache()
+        plain_ms = cuda_time_ms(lambda: threefry.threefry_draw_plain(
+            ktens, words, out=want, **kw), reps=1, warmup=0)
+        what = f"{backend} read noise {t_tiles} x {b_rd} x {s_pad}"
+        hold(what, sub.partitionable, got, want)
+        del want
+        torch.cuda.empty_cache()
+        ms = cuda_time_ms(lambda: threefry.threefry_draw(
+            ktens, words, out=got, **kw), reps=10)
+        del got
+        pairs = t_tiles * (words if sub.partitionable else -(-words // 2))
+        nbytes = (2 * t_tiles * words * 4 + noise_std.numel() * 4
+                  + ktens.numel() * 4)
+        t_bound = bound_ms(nbytes, pairs * THREEFRY_OPS_PER_PAIR
+                           + t_tiles * words * THREEFRY_OPS_PER_WORD,
+                           int_rate=int_rate)
+        if backend == "pcm_sim":             # the kernels line's times
+            kernel_row.update(ms=ms, plain_ms=plain_ms, bound=t_bound)
+        say(f"[time] threefry read-noise epilogue, {backend} {preset} batch "
+            f"0, {t_tiles} keys x {b_rd} x {s_pad} (one bank): {ms:.3f} "
+            f"ms/launch (plain {plain_ms:.1f} ms, bound {t_bound[0]:.4f} ms "
+            f"by {t_bound[1]}; torch.randn of {full:,}: {randn_ms:.3f} ms) | "
+            f"held against plain: max ulp / share differing / max abs "
+            f"{' / '.join(f'{x:.3g}' for x in gaps[(sub.partitionable, what)])}"
+            f" | {card}")
+        noise_ms = cuda_time_ms(lambda: [sub.add_read_noise(keys, cnt, act)
+                                         for _ in range(2)], reps=5)
+        del cnt, q_pos, q_neg, qbits
+        _, clips = crossbar.read_banks(q_first, w_pos, w_neg, space.dim,
+                                       xcfg, sub, with_stats=True)
+        census = {bank: sub.fault_census(tuple(w_pos.shape), stream=st,
+                                         device=dev)
+                  for st, bank in ((0, "pos"), (1, "neg"))}
+        m = score_profile(rep1.abundance, sample.true_abundance)
+        say(f"[accel] {backend} {preset}: program {prog_s:.3f} s | profile "
+            f"{secs:.3f} s ({NUM_READS / secs:.0f} reads/s), again "
+            f"{secs2:.3f} s, report identical | a batch {read_ms:.2f} ms = "
+            f"bmm {bmm_ms:.2f} + noise {noise_ms:.2f} + rest "
+            f"{read_ms - bmm_ms - noise_ms:.2f} | max_memory_allocated "
+            f"{peak / 1e9:.2f} GB | {card}")
+        say(f"[accel] {backend} {preset}: another seed's agreement differs "
+            f"in {float((a_seed != a_other).float().mean()):.4f} of "
+            f"{a_seed.numel()} | fault census {json.dumps(census)} | ADC "
+            f"clips in batch 0: {clips} | precision {m.precision:.3f} "
+            f"recall {m.recall:.3f} l1 {m.l1_error:.3f} | unmapped "
+            f"{rep1.unmapped_reads} multi {rep1.multi_reads} of "
+            f"{rep1.total_reads} | launches {json.dumps(runs)} | {card}")
+        del sess, be, w_pos, w_neg
+        torch.cuda.empty_cache()
+
+    # -- 10.4 noisy card against CPU --------------------------------------
+    small = SyntheticSource(synth.CommunitySpec(
+        num_species=2, genome_len=200_000, seed=5), num_reads=256)
+    pcm_cfg = dataclasses.replace(config, backend="pcm_sim",
+                                  backend_options={"preset": "pcm"})
+    card_sess = ProfilingSession(pcm_cfg)
+    db_small = card_sess.build_refdb(small.genomes)
+    cpu_sess = ProfilingSession(pcm_cfg, device="cpu")
+    db_cpu = cpu_sess.adopt_refdb(db_small.to("cpu"))
+    t0 = time.perf_counter()
+    q_cpu = cpu_sess.encode_reads(small.tokens, small.lengths)
+    a_cpu = cpu_sess.backend.agreement(q_cpu, db_cpu.prototypes)
+    cpu_s = time.perf_counter() - t0
+    q_card = card_sess.encode_reads(small.tokens, small.lengths)
+    if not torch.equal(q_card.cpu(), q_cpu):
+        fail("pcm_sim encode differs between the card and the CPU")
+    a_card = card_sess.backend.agreement(q_card, db_small.prototypes).cpu()
+    diff = (a_card.long() - a_cpu.long()).abs()
+    share = float((diff > 0).float().mean())
+    if int(diff.max()) > 1 or share > NEAR_EXACT_SHARE:
+        fail(f"pcm_sim card vs CPU: {share:.2e} of the agreements differ, "
+             f"max by {int(diff.max())} (tolerance {NEAR_EXACT_SHARE:g}, "
+             f"one count)")
+    same_report = (card_sess.profile(small).to_dict()
+                   == cpu_sess.profile(small).to_dict())
+    say(f"[accel] pcm_sim pcm, card vs CPU at D = {space.dim}, "
+        f"{db_small.num_prototypes} prototypes, 256 reads: {share:.2e} of "
+        f"{a_card.numel()} agreements differ (max {int(diff.max())}; "
+        f"tolerance {NEAR_EXACT_SHARE:g}, one count) | reports "
+        f"{'equal' if same_report else 'differ'} | CPU read {cpu_s:.1f} s "
+        f"| {card}")
+    del card_sess, cpu_sess, db_small, db_cpu
+
+    # -- 10.5 the noise-aware build at full width --------------------------
+    rt_cfg = dataclasses.replace(config, backend="racetrack_sim",
+                                 backend_options={"preset": "racetrack"})
+    stats = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = codesign.noise_aware_refdb(db, sample.genomes, rt_cfg,
+                                         iterations=2, stats=stats)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if stats["best"] < stats["naive"]:
+        fail(f"noise_aware_refdb validated {stats['best']} below the naive "
+             f"build's {stats['naive']}")
+    changed = int((refined.prototypes != db.prototypes).any(dim=1).sum())
+    say(f"[accel] noise_aware_refdb racetrack (iterations 2): build "
+        f"{build_s:.2f} s | max_memory_allocated {peak / 1e9:.2f} GB | "
+        f"validation (hit rate, -false hits) naive {stats['naive']} -> "
+        f"refined {stats['best']} over {stats['candidates']} candidates | "
+        f"{stats['flagged']} training reads flagged, the last retraining "
+        f"changed {stats['changed']} prototypes | {changed} of "
+        f"{refined.num_prototypes} prototypes changed | {card}")
+    del refined
+
+    # The retraining steps on the card (flagged reads bundled with
+    # index_add_, rebinarize_counters, the candidates validated), held
+    # against the CPU on the same inputs: full D on 10.4's community, with
+    # half the racetrack's tracks misaligned (repro's sweep point).  The
+    # device transfer stays in {0, 1}, so the two runs must agree exactly.
+    sh_cfg = dataclasses.replace(config, backend="racetrack_sim",
+                                 backend_options={"shift_fault_rate": 0.5,
+                                                  "seed": 3})
+    builds = {}
+    for where in ("cuda", "cpu"):
+        sess = ProfilingSession(sh_cfg, device=where)
+        db_sh = sess.build_refdb(small.genomes)
+        st = {}
+        t0 = time.perf_counter()
+        out = codesign.noise_aware_refdb(db_sh, small.genomes, sh_cfg,
+                                         iterations=2, stats=st)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        builds[where] = (db_sh.prototypes.cpu(), out.prototypes.cpu(), st,
+                         time.perf_counter() - t0)
+        del sess, db_sh, out
+    naive_c, out_c, st_c, card_s = builds["cuda"]
+    naive_h, out_h, st_h, host_s = builds["cpu"]
+    if st_c["candidates"] < 3 or st_c["flagged"] < 1 or st_c["changed"] < 1:
+        fail(f"noise_aware_refdb shift faults: no retraining step changed a "
+             f"prototype on the card ({st_c})")
+    if st_c["best"] < st_c["naive"]:
+        fail(f"noise_aware_refdb shift faults validated {st_c['best']} below "
+             f"the naive build's {st_c['naive']}")
+    if (not torch.equal(naive_c, naive_h) or not torch.equal(out_c, out_h)
+            or st_c != st_h):
+        fail(f"noise_aware_refdb shift faults: the card's build differs from "
+             f"the CPU's (card {st_c}, CPU {st_h})")
+    say(f"[accel] noise_aware_refdb racetrack shift_fault_rate 0.5 at D = "
+        f"{space.dim}, {naive_c.shape[0]} prototypes (iterations 2): "
+        f"{st_c['candidates']} candidates, {st_c['flagged']} training reads "
+        f"flagged, the last retraining changed {st_c['changed']} "
+        f"prototypes, validation {st_c['naive']} -> {st_c['best']} | card "
+        f"== CPU (prototypes and stats) | build {card_s:.2f} s on the card, "
+        f"{host_s:.1f} s on the CPU | {card}")
+    del builds
+
+    # -- 10.6 a three-point noise sweep ------------------------------------
+    n_sw = 2048
+    toks, lens = sample.tokens[:n_sw], sample.lengths[:n_sw]
+    t0 = time.perf_counter()
+    points = sweep.noise_sweep(
+        sample.genomes, toks, lens, sample.true_abundance,
+        config=dataclasses.replace(config, backend="pcm_sim"),
+        knob="read_sigma", levels=(0.0, 0.05, 0.2), refdb=db)
+    sweep_s = time.perf_counter() - t0
+    want = ProfilingSession(config).profile(ArraySource(toks, lens),
+                                            refdb=db).to_dict()
+    if points[0].report.to_dict() != want:
+        fail("noise_sweep at read_sigma 0: report differs from cuda_fused's")
+    say(f"[accel] noise_sweep read_sigma at D = {space.dim}, {n_sw} reads "
+        f"({sweep_s:.1f} s; level 0 == cuda_fused): "
+        + " | ".join(p.row() for p in points) + f" | {card}")
+
+    runs = noisy_runs["pcm_sim"]
+    b_ms, b_by = kernel_row["bound"]
+    row = {"name": "threefry", "route": "cuda",
+           "source": "src/repro_torch/csrc/threefry.cu",
+           "replaces": "src/repro/accel/crossbar.py:142",
+           "launches": runs["threefry"],
+           "max_abs_err": max(g[2] for g in gaps.values()),
+           "ms": kernel_row["ms"], "plain_ms": kernel_row["plain_ms"],
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": kernel_row["library_ms"]}
+    rows.append(row)
+    say(f"[accel] threefry launches, program + profile of {NUM_READS} "
+        f"reads: pcm_sim pcm {runs['threefry']}, racetrack_sim racetrack "
+        f"{noisy_runs['racetrack_sim']['threefry']} | {card}")
+
+
 def shard_worker(out_path: str) -> int:
     """One rank of phase 9's two-rank run (rank and world size from the
     environment): builds phase 3's RefDB through ``sharded`` over
@@ -1062,7 +1509,7 @@ def main() -> int:
     from repro_torch.genomics import synth
     from repro_torch.kernels import (_build, _search, am_matmul,
                                      fused_profile, hamming_am, hdc_encoder,
-                                     ops)
+                                     ops, threefry)
     from repro_torch.pipeline import (ProfilerConfig, ProfilingSession,
                                       SyntheticSource)
 
@@ -1076,7 +1523,8 @@ def main() -> int:
                 "fused_profile": fused_profile.fused_profile,
                 "hamming_am": hamming_am.hamming_am,
                 "am_matmul_packed": am_matmul.am_matmul_packed,
-                "am_matmul": am_matmul.am_matmul}
+                "am_matmul": am_matmul.am_matmul,
+                "threefry": threefry.threefry_draw}
 
     def zero_counts() -> None:
         torch.cuda.synchronize()
@@ -1532,6 +1980,14 @@ def main() -> int:
                 card=card, out_dir=out_dir, zero_counts=zero_counts,
                 read_counts=read_counts)
     say(f"[shard] shard phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. the device model -------------------------------------------------
+    t0 = time.perf_counter()
+    accel_phase(config=config, sample=sample, db=db, main_report=main_report,
+                card=card, int_rate=int_rate, zero_counts=zero_counts,
+                read_counts=read_counts, rows=rows)
+    say(f"[accel] device-model phase {time.perf_counter() - t0:.1f} s | "
+        f"{card}")
 
     say(card)
     say(json.dumps({"kernels": rows}))

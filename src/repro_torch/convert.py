@@ -5,7 +5,11 @@
 and genome lengths.  :func:`from_repro_state` turns them into the port's
 tensors (packed words as ``int32`` bit patterns) and :class:`RefDB`, so
 tests can feed both packages identical state; :func:`to_repro_state` is
-the way back.  Nothing here imports ``repro``.
+the way back.  :func:`banks_from_repro` / :func:`banks_to_repro` carry
+the device model's programmed banks (``repro.accel.crossbar
+.program_prototypes``: float32 ``(T, S_pad, rows)`` each) across, so a
+read can be held against ``repro``'s on ``repro``'s own device state.
+Nothing here imports ``repro``.
 """
 
 from __future__ import annotations
@@ -60,3 +64,28 @@ def to_repro_state(im: torch.Tensor, tie: torch.Tensor, db: RefDB) -> dict:
         "genome_lengths": db.genome_lengths.cpu().numpy().astype(np.int32),
         "species_names": db.species_names,
     }
+
+
+def banks_from_repro(state_pos, state_neg, *,
+                     device: str | torch.device | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``repro``'s programmed banks ``(state_pos, state_neg)`` (numpy
+    float32 ``(T, S_pad, rows)``) -> the port's tensors on ``device``
+    (``None``: ``cuda``), for :func:`repro_torch.accel.crossbar
+    .crossbar_read`."""
+    dev = resolve_device(device)
+    out = []
+    for state in (state_pos, state_neg):
+        a = np.ascontiguousarray(np.asarray(state))
+        if a.dtype != np.float32 or a.ndim != 3:
+            raise ValueError(f"a programmed bank is float32 (T, S_pad, "
+                             f"rows), got {a.dtype} {a.shape}")
+        out.append(torch.from_numpy(a.copy()).to(dev))
+    return out[0], out[1]
+
+
+def banks_to_repro(state_pos: torch.Tensor, state_neg: torch.Tensor
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """The inverse of :func:`banks_from_repro`: numpy float32 banks."""
+    return (state_pos.detach().cpu().numpy().astype(np.float32),
+            state_neg.detach().cpu().numpy().astype(np.float32))

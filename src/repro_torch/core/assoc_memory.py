@@ -230,6 +230,19 @@ def apply_delta(db: RefDB, *, add: RefDB | None = None,
     return out
 
 
+def rebinarize_counters(counters, fallback_bits) -> torch.Tensor:
+    """Sign-threshold bundling counters ``(S, dim)`` back into packed
+    prototypes: positive -> 1, negative -> 0, and an exact zero takes
+    ``fallback_bits`` (the naive build's bit), so an untouched prototype
+    row packs back byte-identical (``repro``'s
+    ``assoc_memory.rebinarize_counters``; tensors or numpy arrays, on the
+    counters' device)."""
+    c = torch.as_tensor(counters)
+    fb = torch.as_tensor(fallback_bits, device=c.device).to(torch.int64)
+    bits = torch.where(c > 0, 1, torch.where(c < 0, 0, fb))
+    return bitops.pack_bits(bits)
+
+
 def agreement_matmul(queries: torch.Tensor, prototypes: torch.Tensor,
                      dim: int) -> torch.Tensor:
     """Agreement scores via the +-1 matmul identity, in full float32.

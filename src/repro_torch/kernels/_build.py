@@ -25,7 +25,8 @@ import tempfile
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("hdc_encoder", "fused_profile", "hamming_am", "am_matmul")
+SOURCES = ("hdc_encoder", "fused_profile", "hamming_am", "am_matmul",
+           "threefry")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

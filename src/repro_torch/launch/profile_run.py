@@ -23,8 +23,10 @@ conflict checks.  Run N ranks with torchrun::
 
 Every rank profiles the same reads; rank 0 prints the report and the
 ``sharded N ways (... base): .. MB per device`` line.
-``--noise-aware-refdb`` needs modules that are not ported yet; it is a CLI
-error that names the ROADMAP item, never a silent fallback.
+``--noise-aware-refdb`` retrains the RefDB on simulated noisy readout
+through the chosen backend (``pcm_sim`` / ``racetrack_sim`` with their
+``--backend-option`` device knobs), as ``repro``'s CLI does; the refined
+database joins the cache key, and its manifest records ``noise_aware``.
 """
 
 from __future__ import annotations
@@ -161,7 +163,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend-option", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="backend-specific option, repeatable (e.g. "
-                         "--backend cuda_fused --backend-option bb=32)")
+                         "--backend cuda_fused --backend-option bb=32, or "
+                         "--backend pcm_sim --backend-option preset=pcm)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs "
                          "the plain torch path on the host)")
@@ -185,7 +188,9 @@ def _parser() -> argparse.ArgumentParser:
                          "declared options and exit")
     ap.add_argument("--noise-aware-refdb", action="store_true",
                     help="retrain the RefDB prototypes on simulated noisy "
-                         "readout (not ported yet, ROADMAP queue 1 item 10)")
+                         "readout through the chosen backend (the "
+                         "margin-maximizing co-design pass; joins the "
+                         "RefDB cache key)")
     ap.add_argument("--noise-aware-iters", type=int, default=2,
                     help="retraining passes for --noise-aware-refdb")
     return ap
@@ -205,10 +210,6 @@ def main(argv: list[str] | None = None) -> None:
                 print("  (+ the wrapped base backend's options, validated "
                       "by its own schema)")
         return
-    if args.noise_aware_refdb:
-        ap.error("--noise-aware-refdb needs the device model and the "
-                 "noise-aware RefDB build, which are not ported to "
-                 "repro_torch yet (ROADMAP queue 1 item 10)")
     if args.backend not in available_backends():
         ap.error(f"unknown backend {args.backend!r}; available: "
                  f"{', '.join(available_backends())}")
@@ -221,6 +222,7 @@ def main(argv: list[str] | None = None) -> None:
         window=args.window, stride=args.stride,
         batch_size=args.batch_size, backend=backend,
         backend_options=options,
+        noise_aware_refdb=args.noise_aware_refdb,
         noise_aware_iters=args.noise_aware_iters,
         threefry_partitionable=args.partitionable)
     # A process group the sharded backend makes here is torn down at the

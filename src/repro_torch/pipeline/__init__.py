@@ -4,7 +4,8 @@
       (same fields and fingerprints as ``repro``'s);
   :mod:`~repro_torch.pipeline.backend`  the backend registry
       (``reference``, ``reference_packed``, ``cuda_matmul``,
-      ``cuda_packed``, ``cuda_fused``, ``sharded``) and each backend's
+      ``cuda_packed``, ``cuda_fused``, ``sharded``, and the device
+      model's ``pcm_sim`` / ``racetrack_sim``) and each backend's
       declared options (``options_schema``);
   :mod:`~repro_torch.pipeline.source`   streaming read input;
   :class:`~repro_torch.pipeline.session.ProfilingSession`  the facade.

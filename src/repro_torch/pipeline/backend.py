@@ -23,6 +23,9 @@ Registered backends:
   sharded          any of the above with the prototype axis split over the
                    ranks of a process group, one shard a rank
                    (:mod:`repro_torch.pipeline.sharded`).
+  pcm_sim          the CUDA encoder kernel + the simulated in-memory AM
+  racetrack_sim    search on a PCM crossbar / racetrack substrate
+                   (:mod:`repro_torch.accel.backend_pcm`).
 
 Every backend takes ``device`` (``None``: ``cuda``, raising without a
 GPU) and keeps its item memory and tie-break vector there.
@@ -71,6 +74,8 @@ _SCHEMAS: dict[str, OptionsSchema] = {}
 _LAZY_MODULES: dict[str, str] = {
     "cuda_fused": "repro_torch.pipeline.fused",
     "sharded": "repro_torch.pipeline.sharded",
+    "pcm_sim": "repro_torch.accel.backend_pcm",
+    "racetrack_sim": "repro_torch.accel.backend_pcm",
 }
 
 

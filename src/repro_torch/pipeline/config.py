@@ -58,8 +58,8 @@ class ProfilerConfig:
         JSON-round-trippable.  Values must be JSON primitives.
       noise_aware_refdb: build the RefDB noise-aware — after the naive
         build, retrain the prototypes on simulated readout through this
-        config's backend + backend_options (the margin-maximizing pass in
-        ``repro``'s noise-aware build; not ported yet).  When enabled, backend and
+        config's backend + backend_options (the margin-maximizing pass of
+        :mod:`repro_torch.accel.codesign`).  When enabled, backend and
         backend_options *join* the RefDB cache key: the refined
         prototypes depend on the device they were trained against.
       noise_aware_iters: retraining passes when ``noise_aware_refdb``.

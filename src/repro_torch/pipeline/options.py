@@ -196,3 +196,17 @@ def coerce(raw: str, kind: str) -> object | None:
         return float(raw)
     except ValueError:
         return None
+
+
+# -- common refinement checks (shared across backend declarations) ---------
+
+def positive(v) -> str | None:
+    return None if v > 0 else "must be > 0"
+
+
+def non_negative(v) -> str | None:
+    return None if v >= 0 else "must be >= 0"
+
+
+def unit_interval(v) -> str | None:
+    return None if 0.0 <= v <= 1.0 else "must be in [0, 1]"

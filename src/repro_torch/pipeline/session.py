@@ -9,8 +9,10 @@ backend on one device and drives the whole pipeline::
     report = session.profile(FastqSource("sample.fastq"))
 
 ``device=None`` means ``cuda``; without a GPU the session raises unless
-the caller passes ``device="cpu"``.  The noise-aware RefDB refinement of
-``repro`` is not ported yet.
+the caller passes ``device="cpu"``.  With ``config.noise_aware_refdb`` a
+build is followed by ``repro``'s noise-aware refine
+(:func:`repro_torch.accel.codesign.noise_aware_refdb`), and a cached entry
+records ``noise_aware`` in its manifest, as ``repro``'s does.
 
 Every way a session acquires a RefDB (build, cache load, adopt) ends in
 the backend's ``place_refdb`` hook when it has one: the ``sharded``
@@ -107,12 +109,37 @@ class ProfilingSession:
 
     # -- Step 2 ------------------------------------------------------------
     def build_refdb(self, genomes: dict[str, np.ndarray]) -> RefDB:
-        """Encode the reference genomes into the AM through the backend."""
-        self._require_naive_refdb()
+        """Encode the reference genomes into the AM through the backend.
+
+        With ``config.noise_aware_refdb`` the naive build is followed by
+        the margin-maximizing retraining pass, read through this config's
+        backend and options on the session's device.
+        """
         db = refdb_store.build_streaming(genomes, self._builder())
+        db = self._maybe_refine(db, genomes)
         self.refdb = self._place(db)
         self.refdb_loaded_from_cache = False
         return self.refdb
+
+    def _maybe_refine(self, db: RefDB,
+                      genomes: dict[str, np.ndarray]) -> RefDB:
+        """Noise-aware co-design pass, when the config asks for it."""
+        if not self.config.noise_aware_refdb:
+            return db
+        from repro_torch.accel.codesign import noise_aware_refdb
+        return noise_aware_refdb(db, genomes, self.config,
+                                 iterations=self.config.noise_aware_iters)
+
+    def _config_fields(self) -> dict:
+        """Provenance for the store manifest (``noise_aware`` as
+        ``repro`` records it, when the build refines)."""
+        extra = {}
+        if self.config.noise_aware_refdb:
+            extra["noise_aware"] = {
+                "backend": self.config.backend,
+                "backend_options": list(self.config.backend_options),
+                "iters": self.config.noise_aware_iters}
+        return refdb_store.config_fields(self.config, **extra)
 
     def adopt_refdb(self, db: RefDB) -> RefDB:
         """Make an externally built/loaded RefDB this session's database
@@ -143,7 +170,6 @@ class ProfilingSession:
         """
         if cache_dir is None:
             return self.build_refdb(genomes)
-        self._require_naive_refdb()
         cache = self.refdb_cache_path(cache_dir, genomes)
         self.refdb_cache_file = cache
         db = None
@@ -154,19 +180,24 @@ class ProfilingSession:
             self.refdb = self._place(db)
             self.refdb_loaded_from_cache = True
             return self.refdb
+        refine = self.config.noise_aware_refdb
         db = refdb_store.build_streaming(
-            genomes, self._builder(), path=cache,
+            genomes, self._builder(), path=None if refine else cache,
             refdb_fingerprint=self.config.refdb_fingerprint(),
             genomes_digest=_genomes_digest(genomes),
-            config_fields=refdb_store.config_fields(self.config))
+            config_fields=self._config_fields())
+        if refine:
+            # Cache the *refined* database under the noise-aware key (the
+            # fingerprint folds in backend + options + iters), so a later
+            # load gets the retrained prototypes, not the naive build.
+            db = self._maybe_refine(db, genomes)
+            refdb_store.save(
+                cache, db, refdb_fingerprint=self.config.refdb_fingerprint(),
+                genomes_digest=_genomes_digest(genomes),
+                config_fields=self._config_fields())
         self.refdb = self._place(db)
         self.refdb_loaded_from_cache = False
         return self.refdb
-
-    def _require_naive_refdb(self) -> None:
-        if self.config.noise_aware_refdb:
-            raise NotImplementedError(
-                "noise_aware_refdb is not ported to repro_torch yet")
 
     # -- Step 3 ------------------------------------------------------------
     def encode_reads(self, tokens, lengths) -> torch.Tensor:

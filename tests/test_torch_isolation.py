@@ -41,7 +41,11 @@ def test_no_jax_or_repro_imports_in_the_port():
             "serve/router.py", "serve/fleet/__init__.py",
             "serve/fleet/replica.py", "serve/fleet/controller.py",
             "launch/serve_fleet.py", "pipeline/sharded.py",
-            "distributed/__init__.py", "distributed/sharding.py"} <= names
+            "distributed/__init__.py", "distributed/sharding.py",
+            "accel/__init__.py", "accel/substrate.py", "accel/device.py",
+            "accel/racetrack.py", "accel/crossbar.py",
+            "accel/backend_pcm.py", "accel/cost.py", "accel/codesign.py",
+            "accel/sweep.py", "kernels/threefry.py"} <= names
     bad = [(str(f.relative_to(PKG)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -61,7 +65,8 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.serve, repro_torch.kernels.autotune,"
             " repro_torch.launch.serve_profiler, repro_torch.serve.fleet,"
             " repro_torch.launch.serve_fleet, repro_torch.pipeline.sharded,"
-            " repro_torch.distributed; "
+            " repro_torch.distributed, repro_torch.accel,"
+            " repro_torch.kernels.threefry; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = {**os.environ, "PYTHONPATH": str(PKG.parent)}
@@ -93,7 +98,8 @@ def test_fused_backend_defaults_to_cuda():
             resolve_backend("cuda_fused", config)
 
 
-@pytest.mark.parametrize("backend", ["cuda_matmul", "cuda_packed"])
+@pytest.mark.parametrize("backend", ["cuda_matmul", "cuda_packed",
+                                     "pcm_sim", "racetrack_sim"])
 def test_unfused_backends_default_to_cuda(backend):
     from repro_torch.pipeline import resolve_backend
 

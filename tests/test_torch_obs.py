@@ -1,7 +1,8 @@
 """The port's observability layer against ``repro.obs``, on the CPU.
 
-The metrics and trace cases of ``tests/test_obs.py`` that involve neither
-``pcm_sim`` nor the fleet, on the port; the same Prometheus text and JSON
+The metrics and trace cases of ``tests/test_obs.py`` that do not involve
+the fleet (``pcm_sim`` with device noise among them), on the port; the
+same Prometheus text and JSON
 snapshot as ``repro``'s for the same recorded samples; the same metric
 names, kinds, help, buckets and label keys from the same serving traffic;
 metrics on and off give equal reports and equal kernel launch counts; and
@@ -350,6 +351,33 @@ def test_metrics_do_not_perturb_results(sample, refdb, backend):
         backend=backend, path=path) == -(-len(src.tokens) // 16)
     assert reg.counter("session_host_transfers_total").value(
         backend=backend) == 2 * -(-len(src.tokens) // 16)
+
+
+def test_pcm_sim_metrics_bit_exact_with_device_noise(sample, refdb):
+    """The stats read (ADC clips counted) gives the same result as the
+    plain read, with device noise on, and the device metrics are set
+    under repro's names."""
+    cfg = _config(backend="pcm_sim",
+                  backend_options={"preset": "pcm", "seed": 3})
+    src = _slices(sample, 1)[0]
+    off = ProfilingSession(cfg, device="cpu")
+    off.adopt_refdb(refdb)
+    rep_off = off.profile(src).to_json()
+    reg = obs.enable_metrics()              # backends resolve the global
+    try:
+        on = ProfilingSession(cfg, device="cpu")
+        on.adopt_refdb(refdb)
+        rep_on = on.profile(src).to_json()
+    finally:
+        obs.disable()
+    assert rep_on == rep_off
+    assert reg.counter("pcm_program_events_total").total() >= 1
+    assert reg.counter("pcm_reads_total").total() == -(-len(src.tokens)
+                                                       // 16)
+    assert reg.counter("pcm_adc_clips_total").total() >= 0
+    stuck = reg.gauge("pcm_stuck_cells")
+    assert len(stuck.labelsets()) == 4      # {pos,neg} x {on,off}
+    assert all(stuck.value(**ls) > 0 for ls in stuck.labelsets())
 
 
 def _service_run(sample, refdb, backend, metrics):

@@ -361,8 +361,9 @@ def test_profile_run_lists_every_backend(capsys):
     profile_run.main(["--list-backends"])
     names = [ln for ln in capsys.readouterr().out.splitlines()
              if not ln.startswith(" ")]
-    assert names == ["cuda_fused", "cuda_matmul", "cuda_packed",
-                     "reference", "reference_packed", "sharded"]
+    assert names == ["cuda_fused", "cuda_matmul", "cuda_packed", "pcm_sim",
+                     "racetrack_sim", "reference", "reference_packed",
+                     "sharded"]
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -370,7 +371,12 @@ def test_profile_run_lists_every_backend(capsys):
     (["--shards", "2"], "num_shards must equal the world size 1"),
     (["--mesh", "2"], "num_shards must equal the world size 1"),
     (["--shards", "2", "--mesh", "3"], "--mesh 3 conflicts with --shards 2"),
-    (["--noise-aware-refdb"], "ROADMAP queue 1 item 10"),
+    # queue 1 item 10 (the device model): its CLI options fail as every
+    # backend's do
+    pytest.param(["--noise-aware-refdb", "--backend", "pcm_sim",
+                  "--backend-option", "preset=tpu"],
+                 "'preset' must be one of",
+                 id="argv3-ROADMAP queue 1 item 10"),
     (["--backend", "pallas_matmul"], "unknown backend 'pallas_matmul'"),
     (["--backend", "cuda_packed", "--backend-option", "bb=4"],
      "cuda_packed got unknown option 'bb'"),

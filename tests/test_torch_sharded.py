@@ -92,7 +92,7 @@ def test_registered():
 
 
 @pytest.mark.parametrize("base", ["reference", "reference_packed",
-                                  "cuda_fused"])
+                                  "cuda_fused", "pcm_sim", "racetrack_sim"])
 def test_report_bit_identical_on_one_rank(sample, repro_reference, base):
     s = ProfilingSession(_config(backend="sharded",
                                  backend_options={"base": base}),
@@ -102,6 +102,30 @@ def test_report_bit_identical_on_one_rank(sample, repro_reference, base):
     assert s.profile(sample).to_dict() == repro_reference[1]
     fused = base == "cuda_fused"
     assert hasattr(s.backend, "tokens_species_scores") == fused
+
+
+@pytest.mark.parametrize("base,options", [
+    ("pcm_sim", {"preset": "pcm", "seed": 3}),
+    ("racetrack_sim", {"shift_fault_rate": 0.5, "read_sigma": 0.2}),
+])
+def test_substrate_base_device_options_pass_through(sample, base, options):
+    """``sharded`` over a substrate backend forwards the device options:
+    on one rank (no padding, the same banks) the noisy report equals the
+    unsharded backend's, and a misspelled device knob fails with the
+    base's own error."""
+    un = ProfilingSession(_config(backend=base, backend_options=options),
+                          device="cpu")
+    un.build_refdb(sample.genomes)
+    s = ProfilingSession(_config(backend="sharded", backend_options={
+        "base": base, **options}), device="cpu")
+    s.build_refdb(sample.genomes)
+    assert s.backend.base.substrate == un.backend.substrate
+    assert s.profile(sample).to_dict() == un.profile(sample).to_dict()
+    with pytest.raises(ValueError, match=f"{base} got unknown option"):
+        resolve_backend("sharded", _config(
+            backend="sharded", backend_options={"base": base,
+                                                "read_sigmaa": 0.1}),
+            device="cpu")
 
 
 def test_agreement_protocol_surface_matches(sample, repro_reference,
@@ -396,7 +420,7 @@ sample = SyntheticSource(synth.CommunitySpec(num_species=5, genome_len=6_000,
                                              seed=11), num_reads=64,
                          present=[0, 2])
 out = {"reports": {}}
-for base in ("reference", "reference_packed", "cuda_fused"):
+for base in ("reference", "reference_packed", "cuda_fused", "pcm_sim"):
     s = ProfilingSession(ProfilerConfig(
         space=sp, window=1024, batch_size=16, backend="sharded",
         backend_options={"base": base}, threefry_partitionable=MODE),
@@ -428,8 +452,9 @@ print(json.dumps(out))
 @pytest.mark.parametrize("world", [2, 4])
 def test_multi_rank_report_parity(world):
     """Reports equal ``repro``'s single-device reference on 2 and 4 ranks,
-    for 30 prototypes, which 4 does not divide (padding in play), on three
-    bases; a database loaded from the store is placed the same way."""
+    for 30 prototypes, which 4 does not divide (padding in play), on four
+    bases (``pcm_sim`` at its ideal default, as ``tests/test_sharded.py``
+    runs it); a database loaded from the store is placed the same way."""
     sample5 = SyntheticSource(synth.CommunitySpec(
         num_species=5, genome_len=6_000, seed=11), num_reads=64,
         present=[0, 2])
