@@ -130,6 +130,31 @@ no result line):
              community with shift faults, where retraining must change a
              prototype and the card must equal the CPU; and a three-point
              ``noise_sweep`` over ``read_sigma`` on 2,048 reads.
+11. baseline the baseline profilers (no kernel of their own): Kraken2-like
+             (k = 21), MetaCache-like and CLARK-like (k = 21) built on
+             phase 3's community and classifying its 32,768 reads on the
+             card (build seconds, a cold and two warm classifies, reads/s,
+             precision / recall through Bracken, ``memory_bytes`` beside
+             phase 3's RefDB: the paper's ordering RefDB < MetaCache <
+             Kraken2 must hold; no kernel may launch); then each built
+             and run on the card and on the CPU over phase 4's community
+             and reads: tables, hits and categories equal, Bracken
+             abundances within ``BRACKEN_ATOL``.
+12. lm        the LM stack's serving path: ``launch.serve.serve`` of
+             ``stablelm-3b`` at full width (32 layers, d 2,560, MHA,
+             2.8 B bf16 parameters drawn through the Threefry kernel,
+             which must launch) with 8 prompts of 512 tokens and 32
+             decode steps, twice (cold, warm: equal tokens; TF32, set
+             on before, must be off after): prefill ms, decode tok/s,
+             ``max_memory_allocated``; every Threefry launch of
+             ``init_lm`` at its own keys and size, kernel against plain
+             version bit for bit; the bf16 model's logits against a
+             float32 copy of its weights (``LM_BF16_REL``,
+             ``LM_BF16_TOP1``); ``cached_attention`` at the served cache
+             and at 32,768 positions (ms, error, no copy of the cache);
+             then every smoke architecture in float32 with one set of weights
+             on the card and on the CPU: prefill and ``LM_SMOKE_STEPS``
+             greedy decode steps, logits within ``LM_TOL``, tokens equal.
 
 The last lines are one JSON object per kernel list and
 ``{"ok": true, "device": {...}}``.
@@ -203,6 +228,29 @@ NUM_READS = 32_768
 #: ``profile`` runs timed after each backend's first (cold) one, which
 #: carries first-call costs; their median is the end-to-end figure.
 WARM_RUNS = 5
+#: Phase 11: Bracken's float32 abundances, card against CPU (the sums run
+#: in another order).
+BRACKEN_ATOL = 1e-5
+#: Phase 12: the full-width serve (stablelm-3b: 32 layers, d 2,560, MHA,
+#: 2.8 B bf16 parameters) and the card-vs-CPU tolerance of the float32
+#: smoke models' logits.
+LM_ARCH = "stablelm-3b"
+LM_REQUESTS = 8
+LM_PROMPT = 512
+LM_STEPS = 32
+LM_SMOKE_STEPS = 4
+LM_TOL = 1e-4
+#: The served bf16 model against a float32 copy of its weights: the
+#: relative L2 gap of the prompts' logits and the share of positions whose
+#: top token agrees.  At smoke width on the CPU, bf16 rounding parts
+#: ``repro``'s logits from its float32 copy's by 0.7-1.9 % (5-6 % with
+#: MoE routing flips), the port's by as much, with 97-99 % top-1 agreement;
+#: stablelm-3b at full width on an H100: 1.79 % and 94.9 %.
+LM_BF16_REL = 0.05
+LM_BF16_TOP1 = 0.9
+#: cached_attention (bf16 out) against a float32 reference: two bf16 ulps
+#: at magnitudes 1 to 2.
+LM_ATTN_ATOL = 2 ** -6
 
 
 def say(*parts) -> None:
@@ -1432,6 +1480,311 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
         f"{noisy_runs['racetrack_sim']['threefry']} | {card}")
 
 
+def baselines_phase(*, sample, small, db, card, zero_counts,
+                    read_counts) -> None:
+    """Phase 11: the baseline profilers at phase 3's width, and card ==
+    CPU on phase 4's community."""
+    import torch
+
+    from repro_torch.baselines import (ClarkLike, Kraken2Like, MetaCacheLike,
+                                       bracken_like)
+    from repro_torch.eval import score_profile
+
+    makers = {"kraken2-like": lambda dev: Kraken2Like(k=21, device=dev),
+              "metacache-like": lambda dev: MetaCacheLike(device=dev),
+              "clark-like": lambda dev: ClarkLike(k=21, device=dev)}
+    glens = np.array([len(g) for g in sample.genomes.values()])
+    mem = {}
+    for name, make in makers.items():
+        prof = make("cuda")
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof.build(sample.genomes)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        secs = []
+        for _ in range(3):                 # a cold classify and two warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hits, cat = prof.classify_reads(sample.tokens, sample.lengths)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = read_counts()
+        if any(counts.values()):
+            fail(f"{name}: the baselines are plain torch, yet kernels "
+                 f"launched: {counts}")
+        res = bracken_like.estimate_abundance(hits, cat, glens)
+        m = score_profile(res.abundance.cpu().numpy(),
+                          sample.true_abundance)
+        if hits.shape != (NUM_READS, NUM_SPECIES) or \
+                not torch.isfinite(res.abundance).all():
+            fail(f"{name}: hits {tuple(hits.shape)} or abundance not finite")
+        mem[name] = prof.memory_bytes()
+        warm = statistics.median(secs[1:])
+        say(f"[baseline] {name}: build {build_s:.3f} s | classify "
+            f"{NUM_READS} reads cold {secs[0]:.3f} s, warm {warm:.4f} s "
+            f"({NUM_READS / warm:.0f} reads/s) | memory "
+            f"{mem[name] / 1e6:.1f} MB | unmapped "
+            f"{int((cat == 0).sum())} multi {int((cat == 2).sum())} | "
+            f"precision {m.precision:.3f} recall {m.recall:.3f} | {card}")
+        del prof, hits, cat
+    demeter = db.memory_bytes()
+    say(f"[baseline] memory: demeter RefDB {demeter / 1e6:.1f} MB < "
+        f"metacache-like {mem['metacache-like'] / 1e6:.1f} MB < "
+        f"kraken2-like {mem['kraken2-like'] / 1e6:.1f} MB "
+        f"({mem['kraken2-like'] / demeter:.1f}x demeter); clark-like "
+        f"{mem['clark-like'] / 1e6:.1f} MB")
+    if not demeter < mem["metacache-like"] < mem["kraken2-like"]:
+        fail(f"the paper's memory ordering does not hold: {mem}, "
+             f"demeter {demeter}")
+
+    # Card against the port's CPU path on phase 4's community.
+    sglens = np.array([len(g) for g in small.genomes.values()])
+    for name, make in makers.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            prof = make(dev).build(small.genomes)
+            hits, cat = prof.classify_reads(small.tokens, small.lengths)
+            res = bracken_like.estimate_abundance(hits, cat, sglens)
+            out[dev] = (prof.table, hits.cpu(), cat.cpu(), res)
+        (tg, hg, cg, rg), (tc, hc, cc, rc) = out["cuda"], out["cpu"]
+        if not (torch.equal(tg.keys.cpu(), tc.keys)
+                and torch.equal(tg.masks.cpu(), tc.masks)):
+            fail(f"{name}: the card's table differs from the CPU's")
+        if not (torch.equal(hg, hc) and torch.equal(cg, cc)):
+            fail(f"{name}: the card's hits or categories differ from the "
+                 f"CPU's")
+        if not torch.equal(rg.unique_counts.cpu(), rc.unique_counts):
+            fail(f"{name}: Bracken unique counts differ card vs CPU")
+        gap = max(float((getattr(rg, f).cpu() - getattr(rc, f)).abs().max())
+                  for f in ("abundance", "multi_counts"))
+        if gap > BRACKEN_ATOL:
+            fail(f"{name}: Bracken abundance card vs CPU {gap:.2e} > "
+                 f"{BRACKEN_ATOL:.0e}")
+        say(f"[baseline] {name} card == CPU ({len(small.lengths)} reads, "
+            f"{tc.keys.numel()} table entries): table, hits, category "
+            f"equal; Bracken abundance within {gap:.2e} (atol "
+            f"{BRACKEN_ATOL:.0e})")
+
+
+def lm_phase(*, card, zero_counts, read_counts) -> None:
+    """Phase 12: the LM stack's serving path."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import all_archs, get_config
+    from repro_torch.kernels import threefry
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.layers import Keys
+    from repro_torch.serve import serve_step
+
+    # The port, not this script, must turn TF32 off: a caller's setting
+    # would otherwise round the float32 models' products.
+    torch.backends.cuda.matmul.allow_tf32 = True
+    # -- 12.1 stablelm-3b at full width ------------------------------------
+    # Twice: the first call carries first-use costs (cuBLAS handles,
+    # allocator growth); the second is the figure to compare.  The first
+    # also records the keys and size of each of init_lm's draws (one
+    # Threefry launch each), to hold every launch against the plain
+    # version after the timed runs.
+    cfg = get_config(LM_ARCH)
+    drawn = []
+    normal = Keys.normal
+
+    def recording_normal(keys, shape):
+        drawn.append((keys.words.copy(), keys.partitionable,
+                      int(np.prod(shape))))
+        return normal(keys, shape)
+
+    for run in ("cold", "warm"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        if run == "cold":
+            Keys.normal = recording_normal
+        t0 = time.perf_counter()
+        try:
+            out = lm_serve.serve(LM_ARCH, smoke=False,
+                                 num_requests=LM_REQUESTS,
+                                 prompt_len=LM_PROMPT, decode_steps=LM_STEPS)
+        finally:
+            Keys.normal = normal
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        toks = out["tokens"]
+        if toks.shape != (LM_REQUESTS, LM_STEPS + 1) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab:
+            fail(f"{LM_ARCH}: served tokens {toks.shape} out of range")
+        if counts["threefry"] < 1:
+            fail(f"{LM_ARCH}: init_lm drew no weights through the Threefry "
+                 f"kernel: {counts}")
+        if run == "warm" and not np.array_equal(toks, first):
+            fail(f"{LM_ARCH}: two serves of one seed gave other tokens")
+        first = toks
+        say(f"[lm] {LM_ARCH} full width, {run} ({cfg.n_layers} layers, d "
+            f"{cfg.d_model}, {out['num_params'] / 1e9:.3f} B "
+            f"{cfg.param_dtype} parameters): {LM_REQUESTS} requests x "
+            f"{LM_PROMPT} prompt tokens, {LM_STEPS} decode steps | prefill "
+            f"{out['prefill_s'] * 1e3:.1f} ms | decode "
+            f"{out['decode_s'] * 1e3:.1f} ms, "
+            f"{LM_REQUESTS * LM_STEPS / out['decode_s']:.0f} tok/s | "
+            f"max_memory_allocated {peak / 1e9:.2f} GB | serve() "
+            f"{wall:.1f} s with init | launches {json.dumps(counts)} | "
+            f"{card}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail(f"{LM_ARCH}: serve() left TF32 on for CUDA matmuls")
+    if len(drawn) != counts["threefry"]:
+        fail(f"{LM_ARCH}: recorded {len(drawn)} Threefry launches, the "
+             f"wrapper counted {counts['threefry']}")
+
+    # Every init_lm launch at its own keys and size (a stacked weight: one
+    # key a layer): the kernel against its plain version, bit for bit.
+    total = 0
+    for words, partitionable, m in drawn:
+        keys = threefry.keys_tensor(words, "cuda")
+        got = threefry.threefry_draw(keys, m, epilogue="normal",
+                                     partitionable=partitionable)
+        want = threefry.threefry_draw_plain(keys, m, epilogue="normal",
+                                            partitionable=partitionable)
+        ulps, nbad, _ = ulp_gap(got, want)
+        if nbad:
+            fail(f"{LM_ARCH} init draw of {len(words)} keys x {m}: "
+                 f"kernel and plain version differ in {nbad} ({ulps} ulp)")
+        total += got.numel()
+        del got, want
+        torch.cuda.empty_cache()
+    shapes = ", ".join(f"{len(w)} x {m}" for w, _, m in drawn)
+    say(f"[lm] init_lm's {len(drawn)} threefry launches (keys x draws a "
+        f"key: {shapes}; {total} draws): kernel == plain version bit for "
+        f"bit")
+
+    # The served bf16 model against a float32 copy of its weights, on the
+    # serve's prompts: only bf16 rounding parts them (the float32 smoke
+    # models below hold the port to the CPU at 1e-4).
+    model = lm.init_lm(0, cfg, device="cuda")
+    cfg32 = dc.replace(cfg, param_dtype="float32")
+    model32 = lm.LM(cfg32, lm.tree_map(lambda t: t.float(), model.tree()))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        lb = lm.forward(model, prompts, cfg)[0].float()
+        lf = lm.forward(model32, prompts, cfg32)[0]
+    rel = float((lb - lf).norm() / lf.norm())
+    top1 = float((lb.argmax(-1) == lf.argmax(-1)).float().mean())
+    gap = float((lb - lf).abs().max())
+    if not torch.isfinite(lb).all() or rel > LM_BF16_REL or \
+            top1 < LM_BF16_TOP1:
+        fail(f"{LM_ARCH}: bf16 logits part from the float32 copy's: "
+             f"relative {rel:.4f} (limit {LM_BF16_REL}), top-1 agreement "
+             f"{top1:.4f} (limit {LM_BF16_TOP1})")
+    say(f"[lm] {LM_ARCH} bf16 against its float32 copy, forward over the "
+        f"{LM_REQUESTS} x {LM_PROMPT} prompts: logits relative gap "
+        f"{rel:.4f} (limit {LM_BF16_REL}), max {gap:.3f} at a scale of "
+        f"{float(lf.abs().max()):.2f}, top-1 agreement {top1:.4f} (limit "
+        f"{LM_BF16_TOP1}) | {card}")
+    del model, model32, lb, lf
+    torch.cuda.empty_cache()
+
+    # The decode step's attention over a cache of the served shape and of
+    # a 32k context: its products read the cache where it lies, so it
+    # allocates no copy of K or V.
+    attn = cfg.attn
+    for s_len in (LM_PROMPT + LM_STEPS + 1, 32_768):
+        shape = (LM_REQUESTS, s_len, attn.num_kv_heads, attn.head_dim)
+        gen = torch.Generator(device="cuda").manual_seed(s_len)
+        cache = {"k": torch.randn(shape, generator=gen, device="cuda"
+                                  ).to(torch.bfloat16),
+                 "v": torch.randn(shape, generator=gen, device="cuda"
+                                  ).to(torch.bfloat16),
+                 "kpos": torch.arange(s_len, device="cuda", dtype=torch.int32
+                                      ).expand(LM_REQUESTS, s_len)}
+        q = torch.randn((LM_REQUESTS, attn.num_heads, attn.head_dim),
+                        generator=gen, device="cuda").to(torch.bfloat16)
+        kv_bytes = 2 * cache["k"].numel() * 2
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = blocks.cached_attention(q, cache, s_len - 1, None)
+        extra = torch.cuda.max_memory_allocated() - base
+        k32, v32 = cache["k"].float(), cache["v"].float()
+        want = torch.softmax(torch.einsum(
+            "bhd,bshd->bhs", q.float(), k32) * attn.head_dim ** -0.5, -1)
+        want = torch.einsum("bhs,bshd->bhd", want.to(torch.bfloat16).float(),
+                            v32)
+        err = float((got.float() - want).abs().max())
+        # What it may allocate: a few float32 score tensors (B, H, S), the
+        # block-diagonal q and the all-heads output (B, H, KV dh) bf16; one
+        # layer's K, upcast or copied, is several times larger.
+        room = 4 * LM_REQUESTS * attn.num_heads * (
+            s_len * 4 + attn.num_kv_heads * attn.head_dim * 2)
+        if err > LM_ATTN_ATOL or extra > room:
+            fail(f"cached_attention at S={s_len}: max error {err:.2e} "
+                 f"(limit {LM_ATTN_ATOL}), {extra} bytes allocated beside "
+                 f"the {kv_bytes}-byte cache (room {room})")
+        del k32, v32, want
+        ms = cuda_time_ms(lambda: blocks.cached_attention(
+            q, cache, s_len - 1, None), reps=20)
+        say(f"[lm] cached_attention, {LM_REQUESTS} requests x {s_len} "
+            f"positions x {attn.num_kv_heads} heads x {attn.head_dim} "
+            f"(K + V {kv_bytes / 1e6:.1f} MB bf16): {ms:.3f} ms a layer, "
+            f"{kv_bytes / ms / 1e6:.0f} GB/s of K + V; "
+            f"{extra / 1e6:.1f} MB allocated besides; error against a "
+            f"float32 reference {err:.1e} | {card}")
+        del cache, q, got
+        torch.cuda.empty_cache()
+
+    # -- 12.2 every SMOKE architecture, float32, card against CPU ----------
+    rng = np.random.default_rng(12)
+    for arch in all_archs():
+        scfg = dc.replace(get_config(arch, smoke=True), param_dtype="float32")
+        cpu_model = lm.init_lm(0, scfg, device="cpu")
+        gpu_model = lm.LM(scfg, lm.tree_map(lambda t: t.to("cuda"),
+                                            cpu_model.tree()))
+        b, s, steps = 2, 12, LM_SMOKE_STEPS
+        toks = rng.integers(0, scfg.vocab, (b, s)).astype(np.int32)
+        kw = {}
+        if scfg.family == "audio":
+            kw["enc_embeds"] = rng.normal(size=(b, 16, scfg.d_model))
+        if scfg.family == "vlm":
+            kw["prefix_embeds"] = rng.normal(
+                size=(b, scfg.vlm_prefix, scfg.d_model))
+        res = {}
+        for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+            fkw = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                   for k, v in kw.items()}
+            with torch.inference_mode():
+                pre = serve_step.make_prefill_step(
+                    scfg, s + scfg.vlm_prefix + steps + 1, q_chunk=8,
+                    kv_chunk=8)
+                logits, caches = pre(model, torch.from_numpy(toks).to(dev),
+                                     **fkw)
+                seen, tok = [logits.cpu()], torch.argmax(logits, -1)
+                greedy = [tok.cpu()]
+                pos0 = s + (scfg.vlm_prefix if "prefix_embeds" in kw else 0)
+                for i in range(steps):
+                    logits, caches = lm.decode_step(model, tok, caches,
+                                                    pos0 + i, scfg)
+                    tok = torch.argmax(logits, -1)
+                    seen.append(logits.cpu())
+                    greedy.append(tok.cpu())
+            res[dev] = (torch.stack(seen, 1), torch.stack(greedy, 1))
+        (lg, tg), (lc, tc) = res["cuda"], res["cpu"]
+        gap = float((lg - lc).abs().max())
+        if not torch.allclose(lg, lc, atol=LM_TOL, rtol=LM_TOL) or \
+                not torch.isfinite(lg).all():
+            fail(f"{arch}: card vs CPU logits differ by {gap:.2e} "
+                 f"(tolerance {LM_TOL:.0e})")
+        if not torch.equal(tg, tc):
+            fail(f"{arch}: card vs CPU greedy tokens differ")
+        say(f"[lm] {arch} smoke float32: prefill + {steps} decode steps, "
+            f"card vs CPU logits max gap {gap:.2e} (atol = rtol = "
+            f"{LM_TOL:.0e}), greedy tokens equal")
+
+
 def shard_worker(out_path: str) -> int:
     """One rank of phase 9's two-rank run (rank and world size from the
     environment): builds phase 3's RefDB through ``sharded`` over
@@ -1988,6 +2341,17 @@ def main() -> int:
                 read_counts=read_counts, rows=rows)
     say(f"[accel] device-model phase {time.perf_counter() - t0:.1f} s | "
         f"{card}")
+
+    # -- 11. the baseline profilers -------------------------------------------
+    t0 = time.perf_counter()
+    baselines_phase(sample=sample, small=small, db=db, card=card,
+                    zero_counts=zero_counts, read_counts=read_counts)
+    say(f"[baseline] baselines phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. the LM stack's serving path ---------------------------------------
+    t0 = time.perf_counter()
+    lm_phase(card=card, zero_counts=zero_counts, read_counts=read_counts)
+    say(f"[lm] LM serving phase {time.perf_counter() - t0:.1f} s")
 
     say(card)
     say(json.dumps({"kernels": rows}))

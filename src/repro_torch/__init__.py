@@ -18,7 +18,13 @@ Conventions shared by every module:
   encode->search kernel and the two standalone AM searches) is
   hand-written CUDA C++ for ``sm_90a`` (:mod:`repro_torch.kernels`); on
   CPU tensors their wrappers run the plain PyTorch versions beside them.
+* The baseline profilers (:mod:`repro_torch.baselines`) and the LM
+  stack's serving half (:mod:`repro_torch.config`,
+  :mod:`repro_torch.configs`, :mod:`repro_torch.models`,
+  ``serve.serve_step`` / ``serve.batching``, ``launch.serve``) are plain
+  torch, as ``repro``'s are plain numpy / JAX.
 """
 
-__all__ = ["core", "eval", "genomics", "kernels", "launch", "obs", "pipeline",
+__all__ = ["accel", "baselines", "config", "configs", "core", "eval",
+           "genomics", "kernels", "launch", "models", "obs", "pipeline",
            "serve"]

@@ -9,7 +9,11 @@ the way back.  :func:`banks_from_repro` / :func:`banks_to_repro` carry
 the device model's programmed banks (``repro.accel.crossbar
 .program_prototypes``: float32 ``(T, S_pad, rows)`` each) across, so a
 read can be held against ``repro``'s on ``repro``'s own device state.
-Nothing here imports ``repro``.
+:func:`lm_params_from_repro` / :func:`lm_params_to_repro` carry an LM's
+parameter tree (``repro.models.lm.init_lm``'s, as numpy: bfloat16 leaves
+as ``ml_dtypes`` arrays, every segment stacked on a leading layer axis)
+to the port's :class:`~repro_torch.models.lm.LM` and back.  Nothing here
+imports ``repro``.
 """
 
 from __future__ import annotations
@@ -89,3 +93,50 @@ def banks_to_repro(state_pos: torch.Tensor, state_neg: torch.Tensor
     """The inverse of :func:`banks_from_repro`: numpy float32 banks."""
     return (state_pos.detach().cpu().numpy().astype(np.float32),
             state_neg.detach().cpu().numpy().astype(np.float32))
+
+
+def _leaf_to_tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy parameter -> a tensor of the same dtype and values
+    (bfloat16 through its 16-bit pattern: numpy has no bfloat16 of its
+    own)."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _tensor_to_leaf(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        bits = t.contiguous().view(torch.int16).numpy()
+        try:
+            return bits.view(np.dtype("bfloat16"))
+        except TypeError:            # no bfloat16 registered with numpy
+            return t.float().numpy()
+    return t.numpy()
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def lm_params_from_repro(tree: dict, cfg, device: str | torch.device | None
+                         = None):
+    """``repro``'s LM parameter tree (numpy leaves) -> the port's
+    :class:`~repro_torch.models.lm.LM` for ``cfg`` on ``device``
+    (``None``: ``cuda``), with the same dtypes and values."""
+    from repro_torch.models.lm import LM
+    dev = resolve_device(device)
+    return LM(cfg, _map_tree(lambda a: _leaf_to_tensor(a, dev), tree))
+
+
+def lm_params_to_repro(model) -> dict:
+    """The inverse of :func:`lm_params_from_repro`: ``repro``'s tree of
+    numpy arrays (bfloat16 leaves as ``ml_dtypes`` arrays where numpy
+    knows that dtype, else float32)."""
+    return _map_tree(_tensor_to_leaf, model.tree())

@@ -1,7 +1,6 @@
 """Serving layer of the port: single-DB service and multi-tenant control plane.
 
-Counterpart of :mod:`repro.serve` (without the legacy LM modules, which
-are not ported yet).  :class:`ProfilingService` (:mod:`repro_torch.serve.profiler_service`)
+Counterpart of :mod:`repro.serve`.  :class:`ProfilingService` (:mod:`repro_torch.serve.profiler_service`)
 is the data plane -- many concurrent requests over one RefDB, bit-exact
 with sequential runs -- on top of the generic
 :class:`FixedShapeScheduler` (:mod:`repro_torch.serve.scheduler`).  Above
@@ -12,7 +11,9 @@ databases with per-tenant quotas and zero-downtime hot-swap.
 :class:`FleetController` (:mod:`repro_torch.serve.fleet`) runs several
 such hosts in one process: version replication, tenant-affinity routing
 by least outstanding reads, failover of a dead host's requests and the
-two-phase fleet-wide swap.
+two-phase fleet-wide swap.  The LM prefill/decode modules
+(:mod:`repro_torch.serve.serve_step`, :mod:`repro_torch.serve.batching`)
+are the LM stack's serving path.
 """
 
 from repro_torch.serve.scheduler import (Cohort, FixedShapeScheduler,

@@ -45,7 +45,15 @@ def test_no_jax_or_repro_imports_in_the_port():
             "accel/__init__.py", "accel/substrate.py", "accel/device.py",
             "accel/racetrack.py", "accel/crossbar.py",
             "accel/backend_pcm.py", "accel/cost.py", "accel/codesign.py",
-            "accel/sweep.py", "kernels/threefry.py"} <= names
+            "accel/sweep.py", "kernels/threefry.py",
+            "baselines/__init__.py", "baselines/kmer_table.py",
+            "baselines/kraken2_like.py", "baselines/metacache_like.py",
+            "baselines/clark_like.py", "baselines/bracken_like.py",
+            "config.py", "configs/__init__.py", "configs/stablelm_3b.py",
+            "models/__init__.py", "models/layers.py",
+            "models/attention.py", "models/moe.py", "models/ssm.py",
+            "models/blocks.py", "models/lm.py", "serve/serve_step.py",
+            "serve/batching.py", "launch/serve.py"} <= names
     bad = [(str(f.relative_to(PKG)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -66,7 +74,10 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.launch.serve_profiler, repro_torch.serve.fleet,"
             " repro_torch.launch.serve_fleet, repro_torch.pipeline.sharded,"
             " repro_torch.distributed, repro_torch.accel,"
-            " repro_torch.kernels.threefry; "
+            " repro_torch.kernels.threefry, repro_torch.baselines,"
+            " repro_torch.configs, repro_torch.models,"
+            " repro_torch.serve.serve_step, repro_torch.serve.batching,"
+            " repro_torch.launch.serve; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = {**os.environ, "PYTHONPATH": str(PKG.parent)}
