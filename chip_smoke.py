@@ -155,6 +155,25 @@ no result line):
              then every smoke architecture in float32 with one set of weights
              on the card and on the CPU: prefill and ``LM_SMOKE_STEPS``
              greedy decode steps, logits within ``LM_TOL``, tokens equal.
+13. train    the LM stack's training path: ``launch.train.train`` of
+             ``stablelm-3b`` at full width and depth (2.8 B bf16
+             parameters drawn through the Threefry kernel, float32 AdamW
+             moments) on ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ`` tokens for
+             ``LM_TRAIN_STEPS`` steps, remat on: cold and warm step time,
+             tokens/s, model FLOP/s (6 N tokens a step) and its share of
+             the bf16 peak, ``max_memory_allocated``, every step's loss
+             and grad norm (finite); the first step's loss within
+             ``LM_TRAIN_BF16_REL`` of a float32 copy's forward loss on the
+             same batch; every Threefry launch of its ``init_lm`` kernel
+             against plain version bit for bit.  Then a restart at
+             ``LM_TRAIN_RESTART_LAYERS`` layers of the same width: 4 steps
+             with an ``AsyncCheckpointer`` save at step 2 (under
+             ``build/``, deleted after), a fresh trainer restored from it
+             reruns steps 2-3 within ``LM_TRAIN_RESUME_RTOL`` of the
+             uninterrupted losses (save and restore seconds).  Then every
+             smoke architecture in float32 (TF32 off), one set of weights
+             through ``LM_TRAIN_SMOKE_STEPS`` train steps on the card and
+             on the CPU: losses and grad norms within ``LM_TRAIN_TOL``.
 
 The last lines are one JSON object per kernel list and
 ``{"ok": true, "device": {...}}``.
@@ -162,6 +181,7 @@ The last lines are one JSON object per kernel list and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -251,6 +271,32 @@ LM_BF16_TOP1 = 0.9
 #: cached_attention (bf16 out) against a float32 reference: two bf16 ulps
 #: at magnitudes 1 to 2.
 LM_ATTN_ATOL = 2 ** -6
+#: Phase 13: launch.train at stablelm-3b's full width and depth: the
+#: serve cell's model, its prompt length as the sequence and its cohort
+#: as the batch (8 x 512 tokens a step, one loss chunk of 512); 8 steps,
+#: the first carrying first-use costs.
+LM_TRAIN_BATCH = 8
+LM_TRAIN_SEQ = 512
+LM_TRAIN_STEPS = 8
+#: The first step's bf16 loss against a float32 copy of the same weights
+#: on the same batch (forward only): bf16 rounding moves the loss by a
+#: small fraction of its ~11 nats (phase 12: bf16 logits 1.8 % from the
+#: float32 copy's in L2, the loss averages that noise out; measured
+#: 1.4e-6 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+LM_TRAIN_BF16_REL = 0.01
+#: The restart check: stablelm-3b's width at 2 layers (~0.42 B
+#: parameters, ~4.2 GB of state on disk) so a save and a restore stay
+#: quick; a resumed run's losses against the uninterrupted run's (CUDA
+#: reductions need not repeat bit for bit; the CPU test holds equality).
+LM_TRAIN_RESTART_LAYERS = 2
+LM_TRAIN_RESTART_STEPS = 4
+LM_TRAIN_RESTART_AT = 2
+LM_TRAIN_RESUME_RTOL = 1e-3
+#: Every smoke architecture in float32, card against CPU over 3 train
+#: steps: losses and grad norms, relative (float32 sums in another
+#: order; phase 12's logits hold 1e-4).
+LM_TRAIN_SMOKE_STEPS = 3
+LM_TRAIN_TOL = 1e-4
 
 
 def say(*parts) -> None:
@@ -1568,6 +1614,56 @@ def baselines_phase(*, sample, small, db, card, zero_counts,
             f"{BRACKEN_ATOL:.0e})")
 
 
+class InitDraws:
+    """Records the keys and size of each ``Keys.normal`` draw (one
+    Threefry launch each) while active, and holds every recorded launch
+    against the plain version afterwards."""
+
+    def __init__(self):
+        self.drawn = []
+
+    def __enter__(self):
+        from repro_torch.models.layers import Keys
+
+        self._keys, self._normal = Keys, Keys.normal
+
+        def recording_normal(keys, shape):
+            self.drawn.append((keys.words.copy(), keys.partitionable,
+                               int(np.prod(shape))))
+            return self._normal(keys, shape)
+        Keys.normal = recording_normal
+        return self
+
+    def __exit__(self, *exc):
+        self._keys.normal = self._normal
+
+    def hold(self, label: str) -> str:
+        """Each recorded launch at its own keys and size (a stacked weight:
+        one key a layer), kernel against plain version, bit for bit;
+        returns a description of the draws."""
+        import torch
+
+        from repro_torch.kernels import threefry
+
+        total = 0
+        for words, partitionable, m in self.drawn:
+            keys = threefry.keys_tensor(words, "cuda")
+            got = threefry.threefry_draw(keys, m, epilogue="normal",
+                                         partitionable=partitionable)
+            want = threefry.threefry_draw_plain(keys, m, epilogue="normal",
+                                                partitionable=partitionable)
+            ulps, nbad, _ = ulp_gap(got, want)
+            if nbad:
+                fail(f"{label} init draw of {len(words)} keys x {m}: kernel "
+                     f"and plain version differ in {nbad} ({ulps} ulp)")
+            total += got.numel()
+            del got, want
+            torch.cuda.empty_cache()
+        shapes = ", ".join(f"{len(w)} x {m}" for w, _, m in self.drawn)
+        return (f"{len(self.drawn)} threefry launches (keys x draws a key: "
+                f"{shapes}; {total} draws)")
+
+
 def lm_phase(*, card, zero_counts, read_counts) -> None:
     """Phase 12: the LM stack's serving path."""
     import dataclasses as dc
@@ -1575,10 +1671,8 @@ def lm_phase(*, card, zero_counts, read_counts) -> None:
     import torch
 
     from repro_torch.configs import all_archs, get_config
-    from repro_torch.kernels import threefry
     from repro_torch.launch import serve as lm_serve
     from repro_torch.models import blocks, lm
-    from repro_torch.models.layers import Keys
     from repro_torch.serve import serve_step
 
     # The port, not this script, must turn TF32 off: a caller's setting
@@ -1591,27 +1685,16 @@ def lm_phase(*, card, zero_counts, read_counts) -> None:
     # Threefry launch each), to hold every launch against the plain
     # version after the timed runs.
     cfg = get_config(LM_ARCH)
-    drawn = []
-    normal = Keys.normal
-
-    def recording_normal(keys, shape):
-        drawn.append((keys.words.copy(), keys.partitionable,
-                      int(np.prod(shape))))
-        return normal(keys, shape)
-
+    draws = InitDraws()
     for run in ("cold", "warm"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
-        if run == "cold":
-            Keys.normal = recording_normal
         t0 = time.perf_counter()
-        try:
+        with draws if run == "cold" else contextlib.nullcontext():
             out = lm_serve.serve(LM_ARCH, smoke=False,
                                  num_requests=LM_REQUESTS,
                                  prompt_len=LM_PROMPT, decode_steps=LM_STEPS)
-        finally:
-            Keys.normal = normal
         wall = time.perf_counter() - t0
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -1637,30 +1720,14 @@ def lm_phase(*, card, zero_counts, read_counts) -> None:
             f"{card}")
     if torch.backends.cuda.matmul.allow_tf32:
         fail(f"{LM_ARCH}: serve() left TF32 on for CUDA matmuls")
-    if len(drawn) != counts["threefry"]:
-        fail(f"{LM_ARCH}: recorded {len(drawn)} Threefry launches, the "
-             f"wrapper counted {counts['threefry']}")
+    if len(draws.drawn) != counts["threefry"]:
+        fail(f"{LM_ARCH}: recorded {len(draws.drawn)} Threefry launches, "
+             f"the wrapper counted {counts['threefry']}")
 
-    # Every init_lm launch at its own keys and size (a stacked weight: one
-    # key a layer): the kernel against its plain version, bit for bit.
-    total = 0
-    for words, partitionable, m in drawn:
-        keys = threefry.keys_tensor(words, "cuda")
-        got = threefry.threefry_draw(keys, m, epilogue="normal",
-                                     partitionable=partitionable)
-        want = threefry.threefry_draw_plain(keys, m, epilogue="normal",
-                                            partitionable=partitionable)
-        ulps, nbad, _ = ulp_gap(got, want)
-        if nbad:
-            fail(f"{LM_ARCH} init draw of {len(words)} keys x {m}: "
-                 f"kernel and plain version differ in {nbad} ({ulps} ulp)")
-        total += got.numel()
-        del got, want
-        torch.cuda.empty_cache()
-    shapes = ", ".join(f"{len(w)} x {m}" for w, _, m in drawn)
-    say(f"[lm] init_lm's {len(drawn)} threefry launches (keys x draws a "
-        f"key: {shapes}; {total} draws): kernel == plain version bit for "
-        f"bit")
+    # Every init_lm launch at its own keys and size: the kernel against its
+    # plain version, bit for bit.
+    say(f"[lm] init_lm's {draws.hold(LM_ARCH)}: kernel == plain version "
+        f"bit for bit")
 
     # The served bf16 model against a float32 copy of its weights, on the
     # serve's prompts: only bf16 rounding parts them (the float32 smoke
@@ -1783,6 +1850,186 @@ def lm_phase(*, card, zero_counts, read_counts) -> None:
         say(f"[lm] {arch} smoke float32: prefill + {steps} decode steps, "
             f"card vs CPU logits max gap {gap:.2e} (atol = rtol = "
             f"{LM_TOL:.0e}), greedy tokens equal")
+
+
+def train_phase(*, card, zero_counts, read_counts) -> None:
+    """Phase 13: the LM stack's training path."""
+    import dataclasses as dc
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import all_archs, get_config
+    from repro_torch.data import lm_data
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as ts
+
+    # -- 13.1 stablelm-3b at full width and depth --------------------------
+    cfg = get_config(LM_ARCH)
+    dcfg = lm_data.DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                              global_batch=LM_TRAIN_BATCH)
+    batch0 = {k: torch.from_numpy(v).cuda()
+              for k, v in lm_data.batch_at(dcfg, 0).items()}
+    # The loss of the weights train() starts from (init_lm's seed 0) on its
+    # first batch, in bf16 and in a float32 copy, forward only: the first
+    # step's bf16 loss must sit near the float32 one.
+    tc = ts.TrainConfig(loss_chunk=LM_TRAIN_SEQ, q_chunk=LM_TRAIN_SEQ,
+                        kv_chunk=LM_TRAIN_SEQ)
+    model = lm.init_lm(0, cfg, device="cuda")
+    cfg32 = dc.replace(cfg, param_dtype="float32")
+    model32 = lm.LM(cfg32, lm.tree_map(lambda t: t.float(), model.tree()))
+    with torch.no_grad():
+        loss_bf16 = float(ts.make_loss_fn(cfg, tc)(model, batch0)[0])
+        loss_f32 = float(ts.make_loss_fn(cfg32, tc)(model32, batch0)[0])
+    del model, model32
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    draws = InitDraws()
+    t0 = time.perf_counter()
+    with draws:
+        out = lm_train.train(LM_ARCH, smoke=False, steps=LM_TRAIN_STEPS,
+                             global_batch=LM_TRAIN_BATCH,
+                             seq_len=LM_TRAIN_SEQ, log_every=1)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts["threefry"] < 1 or counts["threefry"] != len(draws.drawn):
+        fail(f"{LM_ARCH} train: init_lm's Threefry launches {counts}, "
+             f"{len(draws.drawn)} recorded")
+    losses, norms, secs = out["losses"], out["grad_norms"], out["step_s"]
+    if len(losses) != LM_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or not np.isfinite(norms).all():
+        fail(f"{LM_ARCH} train: losses {losses}, grad norms {norms}")
+    gap = abs(losses[0] - loss_f32) / abs(loss_f32)
+    if gap > LM_TRAIN_BF16_REL:
+        fail(f"{LM_ARCH} train: first-step bf16 loss {losses[0]:.5f} is "
+             f"{gap:.4f} from the float32 copy's {loss_f32:.5f} (limit "
+             f"{LM_TRAIN_BF16_REL})")
+    n = out["num_params"]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    warm = statistics.median(secs[1:])
+    flops = 6 * n * tokens / warm
+    say(f"[train] {LM_ARCH} full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {n / 1e9:.3f} B {cfg.param_dtype} parameters, "
+        f"float32 AdamW moments, remat on): {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ} tokens a step | cold step {secs[0] * 1e3:.1f} ms, "
+        f"warm median {warm * 1e3:.1f} ms over {len(secs) - 1} steps "
+        f"(each: {' '.join(f'{x * 1e3:.1f}' for x in secs[1:])}) | "
+        f"{tokens / warm:.0f} tokens/s | model FLOP/s (6 N tokens) "
+        f"{flops / 1e12:.1f} T, {100 * flops / TENSOR_BF16_FLOP_PER_S:.1f} % "
+        f"of {TENSOR_BF16_FLOP_PER_S / 1e12:.0f} T bf16 | "
+        f"max_memory_allocated {peak / 1e9:.2f} GB | train() {wall:.1f} s "
+        f"with init | launches {json.dumps(counts)} | {card}")
+    say(f"[train] {LM_ARCH} losses "
+        f"{' '.join(f'{x:.5f}' for x in losses)} | grad norms "
+        f"{' '.join(f'{x:.4f}' for x in norms)} | first-step loss bf16 "
+        f"{losses[0]:.5f} (forward alone {loss_bf16:.5f}) against the "
+        f"float32 copy's {loss_f32:.5f}: {gap:.2e} apart (limit "
+        f"{LM_TRAIN_BF16_REL}) | {card}")
+    say(f"[train] train()'s init_lm: {draws.hold(LM_ARCH)}: kernel == "
+        f"plain version bit for bit")
+    del out
+    torch.cuda.empty_cache()
+
+    # Where a warm step's time goes: the forward (with its checkpoints),
+    # the backward (recomputing each layer and loss chunk) and the AdamW
+    # update, by CUDA events around each on batch 0 (three steps; the
+    # last one's split).
+    state = ts.init_train_state(0, cfg, tc, device="cuda")
+    loss_fn = ts.make_loss_fn(cfg, tc)
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        state.opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = loss_fn(state.params, batch0)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        state.opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+    parts = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    say(f"[train] {LM_ARCH} a warm step's parts (CUDA events): forward "
+        f"{parts[0]:.1f} ms, backward with recompute {parts[1]:.1f} ms, "
+        f"AdamW {parts[2]:.1f} ms ({len(state.opt.leaves)} leaves, "
+        f"{sum(len(g['params']) for g in state.opt.param_groups)} "
+        f"tensors) | {card}")
+    del state, loss, loss_fn
+    torch.cuda.empty_cache()
+
+    # -- 13.2 a restart from an async checkpoint ---------------------------
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(smoke=False, steps=LM_TRAIN_RESTART_STEPS,
+              global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+              n_layers=LM_TRAIN_RESTART_LAYERS, log_every=1)
+    try:
+        full = lm_train.train(LM_ARCH, ckpt_dir=ckpt,
+                              ckpt_every=LM_TRAIN_RESTART_AT, **kw)
+        shutil.rmtree(os.path.join(
+            ckpt, f"step_{LM_TRAIN_RESTART_STEPS:08d}"))
+        mb = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(ckpt) for f in fs) / 1e6
+        resumed = lm_train.train(LM_ARCH, ckpt_dir=ckpt, **kw)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    want = full["losses"][LM_TRAIN_RESTART_AT:]
+    if resumed["resumed_from"] != LM_TRAIN_RESTART_AT or not np.allclose(
+            resumed["losses"], want, rtol=LM_TRAIN_RESUME_RTOL, atol=0):
+        fail(f"{LM_ARCH} restart: resumed from {resumed['resumed_from']} "
+             f"with losses {resumed['losses']}, uninterrupted {want}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], want))
+    say(f"[train] restart at {LM_TRAIN_RESTART_LAYERS} layers "
+        f"({full['num_params'] / 1e9:.3f} B parameters; {mb:.0f} MB on disk "
+        f"at step {LM_TRAIN_RESTART_AT}): {LM_TRAIN_RESTART_STEPS} steps "
+        f"saving at {LM_TRAIN_RESTART_AT} ({full['save_s']:.2f} s in "
+        f"checkpoint calls), a fresh trainer restored in "
+        f"{resumed['restore_s']:.2f} s reran steps {LM_TRAIN_RESTART_AT}-"
+        f"{LM_TRAIN_RESTART_STEPS - 1}: losses "
+        f"{' '.join(f'{x:.6f}' for x in resumed['losses'])} against "
+        f"{' '.join(f'{x:.6f}' for x in want)} ({rel:.1e} apart, rtol "
+        f"{LM_TRAIN_RESUME_RTOL}) | {card}")
+
+    # -- 13.3 every SMOKE architecture, float32, card against CPU ----------
+    for arch in all_archs():
+        scfg = dc.replace(get_config(arch, smoke=True), param_dtype="float32")
+        stc = ts.TrainConfig(loss_chunk=8, q_chunk=8, kv_chunk=8)
+        cpu_state = ts.init_train_state(0, scfg, stc, device="cpu")
+        gpu_state = ts.TrainState.from_tree(lm.tree_map(
+            lambda t: t.to("cuda"), cpu_state.tree()), scfg, stc)
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail(f"{arch}: TF32 is on for a float32 model on the card")
+        sdc = lm_data.DataConfig(vocab=scfg.vocab, seq_len=16,
+                                 global_batch=2)
+        step = ts.make_train_step(scfg, stc)
+        res = {}
+        for dev, state in (("cuda", gpu_state), ("cpu", cpu_state)):
+            rng = np.random.default_rng(13)
+            seen = []
+            for i in range(LM_TRAIN_SMOKE_STEPS):
+                batch = lm_data.batch_at(sdc, i)
+                if scfg.family == "audio":
+                    batch["enc_embeds"] = rng.normal(
+                        size=(2, 16, scfg.d_model)).astype(np.float32)
+                if scfg.family == "vlm":
+                    batch["prefix_embeds"] = rng.normal(
+                        size=(2, scfg.vlm_prefix, scfg.d_model)).astype(
+                        np.float32)
+                state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                        for k, v in batch.items()})
+                seen.append((float(m["loss"]), float(m["grad_norm"])))
+            res[dev] = np.array(seen)
+        g, c = res["cuda"], res["cpu"]
+        rel = float((np.abs(g - c) / np.abs(c)).max())
+        if not np.isfinite(g).all() or rel > LM_TRAIN_TOL:
+            fail(f"{arch}: card vs CPU train losses / grad norms {g.tolist()}"
+                 f" against {c.tolist()} ({rel:.2e} apart)")
+        say(f"[train] {arch} smoke float32: {LM_TRAIN_SMOKE_STEPS} train "
+            f"steps, card vs CPU losses and grad norms max relative gap "
+            f"{rel:.2e} (tolerance {LM_TRAIN_TOL:.0e}) | {card}")
 
 
 def shard_worker(out_path: str) -> int:
@@ -2352,6 +2599,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_phase(card=card, zero_counts=zero_counts, read_counts=read_counts)
     say(f"[lm] LM serving phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. the LM stack's training path ---------------------------------------
+    t0 = time.perf_counter()
+    train_phase(card=card, zero_counts=zero_counts, read_counts=read_counts)
+    say(f"[train] LM training phase {time.perf_counter() - t0:.1f} s | "
+        f"{card}")
 
     say(card)
     say(json.dumps({"kernels": rows}))

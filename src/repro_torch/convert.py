@@ -12,8 +12,12 @@ read can be held against ``repro``'s on ``repro``'s own device state.
 :func:`lm_params_from_repro` / :func:`lm_params_to_repro` carry an LM's
 parameter tree (``repro.models.lm.init_lm``'s, as numpy: bfloat16 leaves
 as ``ml_dtypes`` arrays, every segment stacked on a leading layer axis)
-to the port's :class:`~repro_torch.models.lm.LM` and back.  Nothing here
-imports ``repro``.
+to the port's :class:`~repro_torch.models.lm.LM` and back;
+:func:`train_state_from_repro` / :func:`train_state_to_repro` do the same
+for a whole train state (``repro.train.train_step.init_train_state``'s
+``{"params", "opt": {"m", "v"}, "step"}``), keeping ``repro``'s stacked
+layout, which is what its weight decay and gradient compression see.
+Nothing here imports ``repro``.
 """
 
 from __future__ import annotations
@@ -140,3 +144,22 @@ def lm_params_to_repro(model) -> dict:
     numpy arrays (bfloat16 leaves as ``ml_dtypes`` arrays where numpy
     knows that dtype, else float32)."""
     return _map_tree(_tensor_to_leaf, model.tree())
+
+
+def train_state_from_repro(tree: dict, cfg, tc, device: str | torch.device
+                           | None = None):
+    """``repro``'s train state (numpy leaves) -> the port's
+    :class:`~repro_torch.train.train_step.TrainState` for ``cfg`` and the
+    :class:`~repro_torch.train.train_step.TrainConfig` ``tc`` on
+    ``device`` (``None``: ``cuda``): its parameters, float32 moments and
+    step."""
+    from repro_torch.train.train_step import TrainState
+    dev = resolve_device(device)
+    return TrainState.from_tree(
+        _map_tree(lambda a: _leaf_to_tensor(a, dev), tree), cfg, tc)
+
+
+def train_state_to_repro(state) -> dict:
+    """The inverse of :func:`train_state_from_repro`: ``repro``'s
+    ``{"params", "opt": {"m", "v"}, "step"}`` of numpy arrays."""
+    return _map_tree(_tensor_to_leaf, state.tree())

@@ -39,8 +39,9 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 # -- parameters ----------------------------------------------------------------
 
 class ParamTree(nn.Module):
-    """One node of ``repro``'s parameter dict: each key a tensor (a frozen
-    :class:`torch.nn.Parameter`) or a child node, read as ``p[key]``."""
+    """One node of ``repro``'s parameter dict: each key a tensor (a
+    :class:`torch.nn.Parameter`, frozen until a trainer calls
+    ``requires_grad_()``) or a child node, read as ``p[key]``."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -56,6 +57,18 @@ class ParamTree(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def leaves(self, path: tuple = ()) -> list[tuple[tuple, nn.Parameter]]:
+        """``(path, parameter)`` of every tensor below, keys sorted as
+        ``jax.tree`` flattens a dict."""
+        out = []
+        for name in sorted(self._keys):
+            value = self[name]
+            if isinstance(value, ParamTree):
+                out.extend(value.leaves(path + (name,)))
+            else:
+                out.append((path + (name,), value))
+        return out
 
     def tree(self) -> dict:
         """The node as a nested dict of tensors (``repro``'s layout)."""
@@ -90,7 +103,8 @@ class Keys:
         """``jax.random.split(key, num)`` of every key of the batch."""
         rows = np.stack([threefry.split(tuple(w), num,
                                         partitionable=self.partitionable)
-                         for w in self.words], axis=1)     # (num, N, 2)
+                         for w in self.words], axis=1) if self.n else \
+            np.zeros((num, 0, 2), np.uint32)              # (num, N, 2)
         return [dataclasses.replace(self, words=r) for r in rows]
 
     def stacked(self, count: int) -> "Keys":
@@ -102,7 +116,10 @@ class Keys:
 
     def normal(self, shape: tuple[int, ...]) -> torch.Tensor:
         """``jax.random.normal(key, shape)`` for each key: ``(N, *shape)``
-        float32 on the device."""
+        float32 on the device (on ``meta``, or for no key: the shape
+        alone, nothing drawn)."""
+        if self.device.type == "meta" or self.n == 0:
+            return torch.empty((self.n,) + tuple(shape), device=self.device)
         m = int(np.prod(shape))
         keys = threefry_kernel.keys_tensor(self.words, self.device)
         v = threefry_kernel.threefry_draw(keys, m, epilogue="normal",

@@ -8,10 +8,12 @@ over parameters stacked on a leading layer axis; here a segment is an
 ``nn.ModuleList`` of :class:`~repro_torch.models.blocks.Block`, whose
 parameters are views of that stacked layout (:class:`LM`), and the
 decode caches keep the stacked layout: one tensor a leaf per segment,
-written in place one layer at a time.
+written in place one layer at a time.  :func:`stacked_leaves` names
+the tensors that make each of ``repro``'s stacked leaves, which is what
+the trainer's weight decay, gradient compression and checkpoints see.
 
 Entry points:
-  init_lm / forward           prefill (optionally returns caches)
+  init_lm / forward           training + prefill (optionally returns caches)
   init_cache / prefill        decode-cache construction
   decode_step                 one-token decode across all segments
   encode_audio                whisper encoder over stub frame embeddings
@@ -19,9 +21,13 @@ Entry points:
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_mod
 from repro_torch.config import ModelConfig
 from repro_torch.core import threefry
 from repro_torch.device import resolve_device
@@ -64,11 +70,15 @@ def segments(cfg: ModelConfig) -> tuple[tuple[str, int], ...]:
 
 def _stack(cfg: ModelConfig, kind: str, tree: dict) -> nn.ModuleList:
     """A stacked segment tree (leading layer axis) -> one Block a layer,
-    each holding views of the stacked tensors."""
+    each holding views of the stacked tensors.  A segment of no layer
+    (``repro``'s plan makes one for Hymba at 4 layers) keeps its
+    ``(0, ...)`` tensors as ``.empty``."""
     count = next(iter(_leaves(tree))).shape[0]
-    return nn.ModuleList(
+    seg = nn.ModuleList(
         Block(cfg, kind, tree_map(lambda t, i=i: t[i], tree))
         for i in range(count))
+    seg.empty = tree if count == 0 else None
+    return seg
 
 
 def _leaves(tree):
@@ -79,9 +89,60 @@ def _leaves(tree):
         yield tree
 
 
-def _unstack(seg: nn.ModuleList) -> dict:
-    trees = [blk.tree() for blk in seg]
-    return tree_map(lambda *ls: torch.stack(ls), *trees)
+@dataclasses.dataclass
+class Leaf:
+    """One of ``repro``'s parameter leaves: its path (``("segments", 0,
+    "attn", "wq")``) and the port's tensors that make it: one a layer for
+    a segment's leaf (``repro`` stacks them on a leading axis; ``empty``,
+    the ``(0, ...)`` tensor, where the segment has no layer), else the
+    one tensor."""
+    path: tuple
+    params: list
+    empty: torch.Tensor | None = None
+
+    @property
+    def stacked(self) -> bool:
+        return self.path[0] in ("segments", "enc_segments")
+
+    @property
+    def ndim(self) -> int:
+        """The rank of ``repro``'s leaf (a segment's has the layer axis)."""
+        if self.empty is not None:
+            return self.empty.ndim
+        return self.params[0].ndim + self.stacked
+
+    def gather(self, fn, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """``repro``'s leaf of ``fn(tensor)``: stacked over the layers, or
+        of the one tensor (``dtype``: a 0-layer leaf's, if not the
+        parameter's)."""
+        if self.empty is not None:
+            return self.empty.detach().to(dtype or self.empty.dtype)
+        if self.stacked:
+            return torch.stack([fn(p) for p in self.params])
+        return fn(self.params[0])
+
+
+def stacked_leaves(model: "LM") -> list[Leaf]:
+    """``repro``'s parameter leaves in ``jax.tree``'s order."""
+    tops = {"embed": model.embed, "final_norm": model.final_norm,
+            "segments": model.segments}
+    if model.cfg.is_encdec:
+        tops.update(enc_norm=model.enc_norm, enc_segments=model.enc_segments)
+    out = []
+    for top in sorted(tops):
+        node = tops[top]
+        if isinstance(node, ParamTree):
+            out.extend(Leaf(path, [p]) for path, p in node.leaves((top,)))
+            continue
+        for i, seg in enumerate(node):
+            if seg.empty is not None:
+                out.extend(Leaf((top, i) + path, [], t)
+                           for path, t in tree_mod.flatten(seg.empty))
+                continue
+            per_layer = [blk.leaves((top, i)) for blk in seg]
+            out.extend(Leaf(path, [layer[j][1] for layer in per_layer])
+                       for j, (path, _) in enumerate(per_layer[0]))
+    return out
 
 
 class LM(nn.Module):
@@ -116,13 +177,8 @@ class LM(nn.Module):
 
     def tree(self) -> dict:
         """The parameters in ``repro``'s layout (segments stacked)."""
-        out = {"embed": self.embed.tree(),
-               "final_norm": self.final_norm.tree(),
-               "segments": tuple(_unstack(s) for s in self.segments)}
-        if self.cfg.is_encdec:
-            out["enc_segments"] = (_unstack(self.enc_segments[0]),)
-            out["enc_norm"] = self.enc_norm.tree()
-        return out
+        return tree_mod.nest((leaf.path, leaf.gather(lambda p: p.data))
+                             for leaf in stacked_leaves(self))
 
     def forward(self, tokens: torch.Tensor, **kw):
         return forward(self, tokens, self.cfg, **kw)
@@ -161,17 +217,28 @@ def init_lm(key: Keys | int, cfg: ModelConfig, *,
     return LM(cfg, tree)
 
 
+def _run_block(blk: Block, h: torch.Tensor, remat: bool, **kw):
+    """``blk(h, **kw)``; with ``remat``, under autograd, its activations
+    are recomputed in the backward (``repro``'s ``jax.checkpoint`` around
+    each layer)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(blk, h, use_reentrant=False, **kw)
+    return blk(h, **kw)
+
+
 def encode_audio(params, frame_embeds: torch.Tensor, cfg: ModelConfig,
                  enc_valid: torch.Tensor | None = None,
-                 q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+                 q_chunk: int = 512, kv_chunk: int = 512,
+                 remat: bool = True) -> torch.Tensor:
     """Whisper encoder over stub conv-frontend frame embeddings (B, S, d)."""
     s = frame_embeds.shape[1]
     pos = torch.arange(s, device=frame_embeds.device)
     h = frame_embeds + layers.sinusoidal_embed(pos, cfg.d_model)[None]
     h = h.to(layers.param_dtype(cfg))
     for blk in params["enc_segments"][0]:
-        h, _, _ = blk(h, positions=pos, kv_valid=enc_valid,
-                      q_chunk=q_chunk, kv_chunk=kv_chunk)
+        h, _, _ = _run_block(blk, h, remat, positions=pos,
+                             kv_valid=enc_valid, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
     return layers.apply_norm(params["enc_norm"], h, cfg.norm).to(h.dtype)
 
 
@@ -183,14 +250,18 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             kv_valid: torch.Tensor | None = None,
             return_caches: bool = False,
             return_hidden: bool = False,
+            remat: bool = True,
             q_chunk: int = 512, kv_chunk: int = 512):
     """Full-sequence forward.
 
     Returns (logits (B, S_total, vocab), aux_loss, caches_per_segment);
     with ``return_hidden`` the first element is the final hidden state
-    instead.  ``prefix_embeds``: VLM patch embeddings prepended (prefix-LM
-    mask).  ``enc_embeds``: whisper encoder frame embeddings (enc-dec
-    only).  A segment's caches come back stacked on a leading layer axis.
+    instead (the trainer's chunked loss runs over it).  ``prefix_embeds``:
+    VLM patch embeddings prepended (prefix-LM mask).  ``enc_embeds``:
+    whisper encoder frame embeddings (enc-dec only).  A segment's caches
+    come back stacked on a leading layer axis.  ``remat`` recomputes each
+    layer in the backward where autograd records and no cache is asked
+    for, as ``repro`` does.
     """
     h = layers.embed_tokens(params["embed"], tokens, cfg)
     prefix_len = 0
@@ -208,17 +279,17 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         if enc_embeds is None:
             raise ValueError("enc-dec model needs enc_embeds")
         enc_out = encode_audio(params, enc_embeds, cfg, enc_valid,
-                               q_chunk, kv_chunk)
+                               q_chunk, kv_chunk, remat=remat)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = []
     for seg, (kind, _) in zip(params["segments"], segments(cfg)):
         seg_caches = []
         for blk in seg:
-            h, aux, cache = blk(
-                h, positions=positions, prefix_len=prefix_len,
-                kv_valid=kv_valid, enc_out=enc_out, enc_valid=enc_valid,
-                q_chunk=q_chunk, kv_chunk=kv_chunk,
+            h, aux, cache = _run_block(
+                blk, h, remat and not return_caches, positions=positions,
+                prefix_len=prefix_len, kv_valid=kv_valid, enc_out=enc_out,
+                enc_valid=enc_valid, q_chunk=q_chunk, kv_chunk=kv_chunk,
                 return_cache=return_caches)
             if kind == "dec" and return_caches:
                 cache = dict(cache,
@@ -337,8 +408,16 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
         return_caches=True, q_chunk=q_chunk, kv_chunk=kv_chunk)
     b = tokens.shape[0]
     s = logits.shape[1]
-    out_caches = [_assemble_cache(cache, cfg, kind, b, s, max_len)
-                  for (kind, _), cache in zip(segments(cfg), seg_caches)]
+    out_caches = []
+    for i, ((kind, count), cache) in enumerate(zip(segments(cfg),
+                                                   seg_caches)):
+        if count == 0:        # a segment of no layer: its (0, ...) caches
+            out_caches.append(init_cache(
+                cfg, b, max_len, dtype=layers.param_dtype(cfg),
+                device=tokens.device)[i])
+        else:
+            out_caches.append(_assemble_cache(cache, cfg, kind, b, s,
+                                              max_len))
     return logits, out_caches, s
 
 

@@ -53,7 +53,12 @@ def test_no_jax_or_repro_imports_in_the_port():
             "models/__init__.py", "models/layers.py",
             "models/attention.py", "models/moe.py", "models/ssm.py",
             "models/blocks.py", "models/lm.py", "serve/serve_step.py",
-            "serve/batching.py", "launch/serve.py"} <= names
+            "serve/batching.py", "launch/serve.py", "tree.py",
+            "data/__init__.py", "data/lm_data.py", "train/__init__.py",
+            "train/optimizer.py", "train/train_step.py",
+            "train/compression.py", "checkpoint/__init__.py",
+            "checkpoint/checkpointer.py", "distributed/fault_tolerance.py",
+            "launch/train.py"} <= names
     bad = [(str(f.relative_to(PKG)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -77,7 +82,11 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.kernels.threefry, repro_torch.baselines,"
             " repro_torch.configs, repro_torch.models,"
             " repro_torch.serve.serve_step, repro_torch.serve.batching,"
-            " repro_torch.launch.serve; "
+            " repro_torch.launch.serve, repro_torch.data,"
+            " repro_torch.train.train_step, repro_torch.train.compression,"
+            " repro_torch.checkpoint.checkpointer,"
+            " repro_torch.distributed.fault_tolerance,"
+            " repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = {**os.environ, "PYTHONPATH": str(PKG.parent)}

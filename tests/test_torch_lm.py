@@ -29,6 +29,7 @@ from repro.models import lm as jlm
 from repro.models import moe as jmoe
 from repro.models import ssm as jssm
 from repro_torch import convert
+from repro_torch import tree as tree_mod
 from repro_torch import configs as tconfigs
 from repro_torch.models import attention, blocks, layers, lm, moe, ssm
 
@@ -331,6 +332,50 @@ def test_lm_forward_prefill_decode_match_repro(arch):
                                         ts0 + i, tcfg)
             _close(tl, wl, TOL, f"decode step {i}")
             _close(tl, want[:, ws0 + i], dict(atol=2e-3, rtol=2e-3),
+                   f"decode step {i} vs forward")
+
+
+def test_segment_of_no_layer_matches_repro():
+    """Hymba at 4 layers: ``repro``'s plan holds a sliding-window segment
+    of no layer.  ``init_lm`` draws ``repro``'s weights (``(0, ...)``
+    leaves there), prefill matches ``repro``'s (that segment's caches
+    ``(0, ...)`` too) and decode its forward."""
+    cfg = dataclasses.replace(get_config("hymba_1_5b", smoke=True),
+                              n_layers=4, param_dtype="float32")
+    tcfg = dataclasses.replace(tconfigs.get_config("hymba_1_5b", smoke=True),
+                               n_layers=4, param_dtype="float32")
+    params = jlm.init_lm(jax.random.key(0), cfg)
+    model = lm.init_lm(0, tcfg, device="cpu", partitionable=MODE)
+    want = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(np.asarray, params))[0]
+    got = jax.tree_util.tree_flatten_with_path(
+        convert.lm_params_to_repro(model))[0]
+    assert [p for p, _ in want] == [p for p, _ in got]
+    assert any(a.shape[:1] == (0,) for _, a in want)
+    for (path, a), (_, b) in zip(want, got):
+        assert a.shape == b.shape, path
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6)
+    model = convert.lm_params_from_repro(jax.tree.map(np.asarray, params),
+                                         tcfg, "cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 14)).astype(
+        np.int32)
+    with torch.inference_mode():
+        wl, wcache, s = jlm.prefill(params, jnp.asarray(toks[:, :12]), cfg,
+                                    16, q_chunk=8, kv_chunk=8)
+        tl, tcache, ts0 = lm.prefill(model, _t(toks[:, :12]), tcfg, 16,
+                                     q_chunk=8, kv_chunk=8)
+        _close(tl, wl, TOL, "prefill")
+        assert [tuple(w.shape) for w in jax.tree.leaves(wcache)] == \
+            [tuple(t.shape) for _, t in tree_mod.flatten(tcache)]
+        # repro's decode_step cannot index a segment of no layer (its scan
+        # body slices layer i of a (0, ...) cache); hold the port's decode
+        # against repro's full forward, as the other decode tests do
+        want, _, _ = jlm.forward(params, jnp.asarray(toks), cfg, q_chunk=8,
+                                 kv_chunk=8, remat=False)
+        for i in range(2):
+            tl, tcache = lm.decode_step(model, _t(toks[:, 12 + i]), tcache,
+                                        ts0 + i, tcfg)
+            _close(tl, want[:, s + i], dict(atol=2e-3, rtol=2e-3),
                    f"decode step {i} vs forward")
 
 
