@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --sweep    # also time other fused-kernel tilings
 
-(``--shard-worker PATH`` is phase 9's two-rank child: the script starts it
-itself, twice, with the rank in the environment.)
+(``--shard-worker PATH`` is phase 9's two-rank child and ``--mesh-worker
+TASK PATH`` phase 14's: the script starts each itself, twice, with the
+rank in the environment.)
 
 Phases (each prints its own lines; any failure exits non-zero and prints
 no result line):
@@ -174,6 +175,31 @@ no result line):
              smoke architecture in float32 (TF32 off), one set of weights
              through ``LM_TRAIN_SMOKE_STEPS`` train steps on the card and
              on the CPU: losses and grad norms within ``LM_TRAIN_TOL``.
+14. mesh     training across ranks (DTensor placements from ``repro``'s
+             rules).  14.0: two gloo ranks on the card probe the
+             collectives that two-rank DTensor training needs on CUDA
+             tensors (all-gather, reduce-scatter, all-to-all, send/recv).
+             14.1: phase 13's run again through the mesh path, on a 1 x 1
+             ``("data", "model")`` mesh over NCCL (``train(...,
+             host_shape=(1, 1))``): its losses equal phase 13's within
+             ``MESH_EQUAL_RTOL``; warm step, tokens/s and peak memory
+             beside phase 13's (the DTensor path's cost).  14.2: two
+             ranks (child processes over NCCL, one card each),
+             ``stablelm-3b`` at full width cut to ``MESH_LAYERS`` layers
+             on 1 x 2 and 2 x 1 meshes, losses within
+             ``MESH_TRAIN_RTOL`` of the single-device run at that depth,
+             step time and memory per rank.  14.3: in the same ranks,
+             ``pipelined_apply`` over 2 pods against the sequential
+             loop, and a checkpoint saved by the 1 x 2 run restored on
+             one rank (this process): resumed losses within
+             ``MESH_TRAIN_RTOL`` of the uninterrupted run's.  On a
+             machine with one card 14.2 and 14.3 wait for two, and the
+             line says so with 14.0's findings.  14.4: the dry
+             runs, started as CPU children when the script starts
+             (``launch.dryrun`` of ``stablelm-3b`` / ``train_4k`` on a
+             fake 16 x 16 group at full depth, ``launch.dryrun_hdc`` on
+             both meshes): both exit 0; per-device bytes, FLOPs and
+             collectives by kind (counts of a fake group, not timings).
 
 The last lines are one JSON object per kernel list and
 ``{"ok": true, "device": {...}}``.
@@ -297,6 +323,27 @@ LM_TRAIN_RESUME_RTOL = 1e-3
 #: order; phase 12's logits hold 1e-4).
 LM_TRAIN_SMOKE_STEPS = 3
 LM_TRAIN_TOL = 1e-4
+
+
+#: Phase 14: training across ranks.  14.1 must repeat phase 13's losses
+#: (the same local products on a 1 x 1 mesh; float32 reductions over one
+#: rank).  14.2 / 14.3 run stablelm-3b's full width at MESH_LAYERS layers,
+#: MESH_STEPS steps of phase 13's batch, two ranks against one device in
+#: bf16: tensor-parallel partial sums round in bf16 before they add
+#: (measured 5.7e-4 relative on a CPU 2 x 2 mesh at smoke width).
+MESH_EQUAL_RTOL = 1e-5
+MESH_LAYERS = 4
+MESH_STEPS = 4
+MESH_TRAIN_RTOL = 1e-3
+#: 14.3's pipeline: 2 stages of tanh(x @ w) at stablelm-3b's width,
+#: float32 (the same products in the same order: equal up to float32
+#: rounding of the device's matmul).
+MESH_PIPE_ATOL = 1e-5
+#: The collectives two-rank DTensor training and the pipeline run (14.0
+#: probes each on gloo over CUDA tensors: what two ranks on one card
+#: would have to use, since NCCL takes one rank a card).
+MESH_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                    "all_to_all_single", "send_recv")
 
 
 def say(*parts) -> None:
@@ -1931,6 +1978,8 @@ def train_phase(*, card, zero_counts, read_counts) -> None:
         f"{LM_TRAIN_BF16_REL}) | {card}")
     say(f"[train] train()'s init_lm: {draws.hold(LM_ARCH)}: kernel == "
         f"plain version bit for bit")
+    p13 = {"losses": losses, "warm_s": warm, "tokens_s": tokens / warm,
+           "peak": peak}
     del out
     torch.cuda.empty_cache()
 
@@ -2030,6 +2079,390 @@ def train_phase(*, card, zero_counts, read_counts) -> None:
         say(f"[train] {arch} smoke float32: {LM_TRAIN_SMOKE_STEPS} train "
             f"steps, card vs CPU losses and grad norms max relative gap "
             f"{rel:.2e} (tolerance {LM_TRAIN_TOL:.0e}) | {card}")
+    return p13
+
+
+class DryRuns:
+    """Phase 14.4's dry runs as CPU child processes, started when the
+    script starts (they need no card and overlap the card's phases) and
+    stopped at exit whatever happens."""
+
+    def __init__(self):
+        self.out = os.path.join(ROOT, "build", "chip_smoke", "dryrun_torch")
+        self.procs = {}
+        self.t0 = time.perf_counter()
+
+    def start(self) -> None:
+        import atexit
+        import shutil
+
+        shutil.rmtree(self.out, ignore_errors=True)
+        os.makedirs(self.out)
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+               "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+        cmds = {"dryrun": ["-m", "repro_torch.launch.dryrun", "--arch",
+                           LM_ARCH, "--shape", "train_4k"],
+                "dryrun_hdc": ["-m", "repro_torch.launch.dryrun_hdc",
+                               "--both-meshes"]}
+        for name, cmd in cmds.items():
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, *cmd, "--out", self.out], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def finish(self, timeout: float) -> dict:
+        """Each child's output once it exits 0 (a failure fails)."""
+        logs = {}
+        for name, p in self.procs.items():
+            try:
+                logs[name] = p.communicate(timeout=timeout)[0]
+            except subprocess.TimeoutExpired:
+                self.stop()
+                fail(f"{name} did not finish in {timeout:.0f} s more")
+            if p.returncode != 0:
+                fail(f"{name} exited {p.returncode}:\n{logs[name][-3000:]}")
+        return logs
+
+
+def _start_pair(task: str, paths: list[str]) -> list:
+    """Two ranks of ``--mesh-worker task`` (the group from the
+    environment, as torchrun makes it)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": "2", "OMP_NUM_THREADS": "4"}
+    for path in paths:
+        if os.path.exists(path):
+            os.unlink(path)
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-worker", task,
+         paths[r]], cwd=ROOT, env={**env, "RANK": str(r),
+                                   "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def _finish_pair(procs, timeout: float) -> list[tuple[int, str]]:
+    """Each rank's exit code and log; a rank still running at
+    ``timeout`` is killed (its code then says so)."""
+    out = []
+    try:
+        for p in procs:
+            try:
+                log = p.communicate(timeout=timeout)[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                log = p.communicate()[0] + "\n(killed: timed out)"
+            out.append((p.returncode, log))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def mesh_worker(task: str, out_path: str) -> int:
+    """One rank of phase 14's two-rank runs.  ``probe``: each collective
+    of ``MESH_COLLECTIVES`` on gloo over CUDA tensors on the one card,
+    recorded as it went (the probe's job is to find what raises).
+    A collective gloo cannot run on CUDA tensors may abort the process
+    (gloo's transport throws from a C++ thread), so each is probed in a
+    pair of its own (``probe:NAME``).  ``train``: 14.2 and 14.3 (NCCL,
+    a card a rank)."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    rank = int(os.environ["RANK"])
+    out: dict = {"rank": rank}
+    if task.startswith("probe:"):
+        name = task.split(":", 1)[1]
+        dist.init_process_group("gloo")
+        dev = torch.device("cuda", 0)
+        x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * rank
+        checks = {
+            "all_gather_into_tensor": lambda: _probe_gather(dist, x),
+            "reduce_scatter_tensor": lambda: _probe_scatter(dist, x),
+            "all_to_all_single": lambda: _probe_a2a(dist, x),
+            "send_recv": lambda: _probe_p2p(dist, x, rank)}
+        try:
+            out[name] = "ok" if checks[name]() else "wrong values"
+        except Exception as e:              # what the probe is for
+            out[name] = f"{type(e).__name__}: {str(e)[:200]}"
+    else:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.distributed import pipeline
+        from repro_torch.launch import train as lm_train
+
+        torch.cuda.set_device(rank)
+        dist.init_process_group("nccl")
+        out["backend"] = str(dist.get_backend())
+        kw = dict(smoke=False, global_batch=LM_TRAIN_BATCH,
+                  seq_len=LM_TRAIN_SEQ, n_layers=MESH_LAYERS,
+                  log_every=100)
+        # the 1 x 2 run saves steps 2 and 4 for 14.3's one-rank restore
+        ckpt = os.path.join(ROOT, "build", "chip_smoke", "mesh_ckpt")
+        for shape in ((1, 2), (2, 1)):
+            torch.cuda.reset_peak_memory_stats()
+            got = lm_train.train(
+                LM_ARCH, steps=MESH_STEPS, host_shape=shape,
+                **(dict(ckpt_dir=ckpt, ckpt_every=2) if shape == (1, 2)
+                   else {}), **kw)
+            out["x".join(map(str, shape))] = {
+                "losses": got["losses"], "step_s": got["step_s"],
+                "peak": torch.cuda.max_memory_allocated()}
+        # 14.3: GPipe over the two ranks as pods, float32
+        pods = init_device_mesh("cuda", (2,), mesh_dim_names=("pod",))
+        gen = torch.Generator().manual_seed(14)
+        d = 2560
+        w = (torch.randn(2, d, d, generator=gen) * d ** -0.5).cuda()
+        x = torch.randn(64, d, generator=gen).cuda()
+        t0 = time.perf_counter()
+        y = pipeline.pipelined_apply(w, x, lambda p, xb: torch.tanh(xb @ p),
+                                     mesh=pods, axis="pod",
+                                     num_microbatches=4)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        want = x
+        for stage in range(2):
+            want = torch.tanh(want @ w[stage])
+        out["pipe"] = {"gap": float((y - want).abs().max()),
+                       "s": pipe_s}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _probe_gather(dist, x) -> bool:
+    import torch
+    got = torch.empty(2 * x.numel(), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(got, x)
+    want = torch.cat([torch.arange(4, dtype=x.dtype, device=x.device) + 10 * r
+                      for r in range(2)])
+    return bool(torch.equal(got, want))
+
+
+def _probe_scatter(dist, x) -> bool:
+    import torch
+    got = torch.empty(2, dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(got, x)
+    base = torch.arange(4, dtype=x.dtype, device=x.device)
+    want = (2 * base + 10)[2 * dist.get_rank():2 * dist.get_rank() + 2]
+    return bool(torch.equal(got, want))
+
+
+def _probe_a2a(dist, x) -> bool:
+    import torch
+    got = torch.empty_like(x)
+    dist.all_to_all_single(got, x)
+    r = dist.get_rank()
+    base = torch.arange(4, dtype=x.dtype, device=x.device)
+    want = torch.cat([base[2 * r:2 * r + 2] + 10 * k for k in range(2)])
+    return bool(torch.equal(got, want))
+
+
+def _probe_p2p(dist, x, rank: int) -> bool:
+    import torch
+    got = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, 1 - rank),
+           dist.P2POp(dist.irecv, got, 1 - rank)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return bool(torch.equal(got, x - 10 * rank + 10 * (1 - rank)))
+
+
+def mesh_phase(*, card, zero_counts, read_counts, p13, dry) -> None:
+    """Phase 14: training across ranks and the dry runs."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as lm_train
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    # -- 14.0 the collectives gloo runs on CUDA tensors --------------------
+    t0 = time.perf_counter()
+    pairs = {}
+    for c in MESH_COLLECTIVES:
+        paths = [os.path.join(out_dir, f"mesh_probe_{c}{r}.json")
+                 for r in range(2)]
+        pairs[c] = (paths, _start_pair(f"probe:{c}", paths))
+    found = {}
+    for c, (paths, procs) in pairs.items():
+        ends = _finish_pair(procs, timeout=120)
+        said = []
+        for (code, log), path in zip(ends, paths):
+            if code == 0:
+                with open(path) as f:
+                    said.append(json.load(f)[c])
+            else:
+                last = [ln for ln in log.splitlines() if ln.strip()]
+                said.append(f"rank exited {code}: "
+                            f"{(last[-1] if last else '')[:160]}")
+        found[c] = said[0] if all(x == "ok" for x in said) else \
+            next(x for x in said if x != "ok")
+    missing = [c for c in MESH_COLLECTIVES if found[c] != "ok"]
+    say(f"[mesh] 14.0 gloo over CUDA tensors, two ranks on the one card, "
+        f"a pair a collective: "
+        + "; ".join(f"{c}: {found[c]}" for c in MESH_COLLECTIVES)
+        + f" | missing: {', '.join(missing) or 'none'} "
+        f"({time.perf_counter() - t0:.1f} s with start-up) | {card}")
+
+    # -- 14.1 one rank over NCCL, full depth, through the mesh path --------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = lm_train.train(LM_ARCH, smoke=False, steps=LM_TRAIN_STEPS,
+                         global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                         log_every=100, host_shape=(1, 1))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    backend = str(dist.get_backend())
+    dist.destroy_process_group()
+    if counts["threefry"] < 1:
+        fail(f"14.1: init_lm's Threefry kernel did not launch: {counts}")
+    if out["mesh"] != (1, 1) or backend != "nccl":
+        fail(f"14.1 ran on mesh {out['mesh']} over {backend}")
+    losses = out["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, p13["losses"]))
+    if len(losses) != LM_TRAIN_STEPS or rel > MESH_EQUAL_RTOL:
+        fail(f"14.1: mesh-path losses {losses} against phase 13's "
+             f"{p13['losses']} ({rel:.2e} apart, rtol {MESH_EQUAL_RTOL})")
+    secs = out["step_s"]
+    warm = statistics.median(secs[1:])
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    say(f"[mesh] 14.1 {LM_ARCH} full width and depth on a 1 x 1 mesh "
+        f"over {backend} (DTensor parameters, moments and batches): cold "
+        f"step {secs[0] * 1e3:.1f} ms, warm median {warm * 1e3:.1f} ms "
+        f"(phase 13: {p13['warm_s'] * 1e3:.1f} ms, x"
+        f"{warm / p13['warm_s']:.2f}) | {tokens / warm:.0f} tokens/s "
+        f"(phase 13: {p13['tokens_s']:.0f}) | max_memory_allocated "
+        f"{peak / 1e9:.2f} GB (phase 13: {p13['peak'] / 1e9:.2f} GB) | "
+        f"losses equal phase 13's within {rel:.1e} (rtol "
+        f"{MESH_EQUAL_RTOL:.0e}) | train() {wall:.1f} s with init | "
+        f"launches {json.dumps(counts)} | {card}")
+    del out
+    torch.cuda.empty_cache()
+
+    # -- 14.2 / 14.3 two ranks ------------------------------------------------
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say(f"[mesh] 14.2 / 14.3 wait for a machine with two cards: this "
+            f"one has {cards}, NCCL takes one rank a card, and gloo over "
+            f"CUDA tensors lacks {', '.join(missing) or 'nothing probed'} "
+            f"(and two-rank DTensor training over gloo on one card "
+            f"crashed, PERF.md §6) | {card}")
+    else:
+        t0 = time.perf_counter()
+        ref = lm_train.train(LM_ARCH, smoke=False, steps=MESH_STEPS,
+                             global_batch=LM_TRAIN_BATCH,
+                             seq_len=LM_TRAIN_SEQ, n_layers=MESH_LAYERS,
+                             log_every=100, mesh_kind="none")
+        ref_s = statistics.median(ref["step_s"][1:])
+        paths = [os.path.join(out_dir, f"mesh_train{r}.json")
+                 for r in range(2)]
+        ckpt = os.path.join(out_dir, "mesh_ckpt")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        try:
+            for r, (code, log) in enumerate(_finish_pair(
+                    _start_pair("train", paths), timeout=900)):
+                if code != 0:
+                    fail(f"14.2 rank {r} exited {code}:\n{log[-3000:]}")
+            ranks = []
+            for path in paths:
+                with open(path) as f:
+                    ranks.append(json.load(f))
+            for shape in ("1x2", "2x1"):
+                got = ranks[0][shape]["losses"]
+                rel = max(abs(a - b) / abs(b)
+                          for a, b in zip(got, ref["losses"]))
+                if rel > MESH_TRAIN_RTOL or any(
+                        r[shape]["losses"] != got for r in ranks):
+                    fail(f"14.2 {shape}: losses {got} against one "
+                         f"device's {ref['losses']} ({rel:.2e} apart)")
+                say(f"[mesh] 14.2 {LM_ARCH} width {MESH_LAYERS} layers on "
+                    f"{shape} over {ranks[0]['backend']} ({cards} card(s)): "
+                    f"losses {' '.join(f'{x:.5f}' for x in got)} vs one "
+                    f"device {' '.join(f'{x:.5f}' for x in ref['losses'])} "
+                    f"({rel:.1e} apart, rtol {MESH_TRAIN_RTOL:.0e}) | warm "
+                    f"step per rank "
+                    + ", ".join(f"{statistics.median(r[shape]['step_s'][1:]) * 1e3:.1f} ms"
+                                for r in ranks)
+                    + f" (one device {ref_s * 1e3:.1f} ms) | "
+                    f"max_memory_allocated per rank "
+                    + ", ".join(f"{r[shape]['peak'] / 1e9:.2f} GB"
+                                for r in ranks)
+                    + f" | {card}")
+            if max(r["pipe"]["gap"] for r in ranks) > MESH_PIPE_ATOL:
+                fail(f"14.3 pipelined_apply: {[r['pipe'] for r in ranks]}")
+            kept = ranks[0]["1x2"]["losses"]
+            shutil.rmtree(os.path.join(ckpt, f"step_{MESH_STEPS:08d}"))
+            resumed = lm_train.train(
+                LM_ARCH, smoke=False, steps=MESH_STEPS,
+                global_batch=LM_TRAIN_BATCH,
+                seq_len=LM_TRAIN_SEQ, n_layers=MESH_LAYERS, log_every=100,
+                mesh_kind="none", ckpt_dir=ckpt)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        want = kept[2:]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(resumed["losses"], want))
+        if resumed["resumed_from"] != 2 or rel > MESH_TRAIN_RTOL:
+            fail(f"14.3 restore: from {resumed['resumed_from']}, losses "
+                 f"{resumed['losses']} against the 2-rank run's {want}")
+        p = ranks[0]["pipe"]
+        say(f"[mesh] 14.3 pipelined_apply over 2 pods (tanh(x @ w), 64 x "
+            f"2,560 float32, 4 microbatches): max gap to the sequential "
+            f"loop {p['gap']:.1e} (atol {MESH_PIPE_ATOL:.0e}), "
+            f"{p['s'] * 1e3:.1f} ms | a 1 x 2 checkpoint of step 2 "
+            f"restored on one rank: losses "
+            f"{' '.join(f'{x:.5f}' for x in resumed['losses'])} vs the "
+            f"2-rank run's {' '.join(f'{x:.5f}' for x in want)} "
+            f"({rel:.1e} apart, rtol {MESH_TRAIN_RTOL:.0e}) | "
+            f"{time.perf_counter() - t0:.1f} s with start-up | {card}")
+
+    # -- 14.4 the dry runs (CPU children, counts of a fake group) -------------
+    t0 = time.perf_counter()
+    logs = dry.finish(timeout=600)
+    waited = time.perf_counter() - t0
+    cell = json.load(open(os.path.join(
+        dry.out, f"{LM_ARCH}.train_4k.16x16.json")))
+    if not cell["ok"]:
+        fail(f"dry run {LM_ARCH} train_4k: {cell['error'][:2000]}")
+    coll = cell["collectives"]
+    kinds = ", ".join(f"{k} {coll[k]['count']} ({coll[k]['result_bytes'] / 1e9:.2f} GB)"
+                      for k in ("all-gather", "all-reduce", "reduce-scatter",
+                                "all-to-all", "collective-permute")
+                      if coll[k]["count"])
+    say(f"[mesh] 14.4 dryrun {LM_ARCH} train_4k on a fake 16 x 16 group "
+        f"({cell['extra']['n_layers']} layers, CPU child, "
+        f"{cell['seconds']:.1f} s): per device arguments "
+        f"{cell['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, outputs "
+        f"{cell['memory']['output_size_in_bytes'] / 1e9:.3f} GB, FLOPs "
+        f"{cell['cost']['flops']:.3e} (6ND / 256: "
+        f"{cell['extra']['model_flops_6nd'] / 256:.3e}), collectives "
+        f"{kinds}, link bytes {coll['total_link_bytes'] / 1e9:.2f} GB "
+        f"(waited {waited:.1f} s at 14.4; started "
+        f"{time.perf_counter() - dry.t0:.0f} s ago)")
+    hdc = [ln for ln in logs["dryrun_hdc"].splitlines()
+           if ln.startswith("[demeter_hdc")]
+    if len(hdc) != 6:
+        fail(f"dryrun_hdc: {logs['dryrun_hdc'][-2000:]}")
+    for ln in hdc:
+        say(f"[mesh] 14.4 {ln}")
 
 
 def shard_worker(out_path: str) -> int:
@@ -2113,6 +2546,8 @@ def main() -> int:
     from repro_torch.pipeline import (ProfilerConfig, ProfilingSession,
                                       SyntheticSource)
 
+    dry = DryRuns()             # phase 14.4's CPU children, from the start
+    dry.start()
     dev = torch.device("cuda")
     card = card_line()
     clock = sm_clock_hz()
@@ -2602,9 +3037,16 @@ def main() -> int:
 
     # -- 13. the LM stack's training path ---------------------------------------
     t0 = time.perf_counter()
-    train_phase(card=card, zero_counts=zero_counts, read_counts=read_counts)
+    p13 = train_phase(card=card, zero_counts=zero_counts,
+                      read_counts=read_counts)
     say(f"[train] LM training phase {time.perf_counter() - t0:.1f} s | "
         f"{card}")
+
+    # -- 14. training across ranks and the dry runs ------------------------------
+    t0 = time.perf_counter()
+    mesh_phase(card=card, zero_counts=zero_counts, read_counts=read_counts,
+               p13=p13, dry=dry)
+    say(f"[mesh] mesh phase {time.perf_counter() - t0:.1f} s | {card}")
 
     say(card)
     say(json.dumps({"kernels": rows}))
@@ -2617,4 +3059,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-worker"]:
         sys.exit(shard_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -21,6 +21,12 @@ read names from the manifest alone.
 Writes go to ``step_%08d.tmp`` and are renamed when complete: a crashed
 save is never taken for the latest step.  The async saver snapshots to
 host memory on the call and writes on a worker thread.
+
+A state on a mesh (DTensor leaves) is saved as the same full arrays:
+every rank takes part in gathering each leaf (``full_tensor()``, one at
+a time) and rank 0 writes.  ``restore(..., mesh=, shardings=)`` reads
+each leaf on every rank and keeps this rank's shard of it, leaf by leaf,
+so nothing is broadcast and no rank holds the whole state at once.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as tree_mod
 
@@ -48,6 +56,8 @@ def _to_numpy(leaf) -> np.ndarray:
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
     t = leaf.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.clone() if t.device.type == "cpu" else t.cpu()
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy().view("V2")
@@ -83,6 +93,16 @@ def _write(root: pathlib.Path, flat: list[tuple[str, np.ndarray, str]],
     return final
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or a process of no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _snapshot(state) -> list[tuple[str, np.ndarray, str]]:
     out = []
     for path, leaf in tree_mod.flatten(state):
@@ -95,8 +115,15 @@ def _snapshot(state) -> list[tuple[str, np.ndarray, str]]:
 
 def save(path: str | pathlib.Path, state, step: int) -> pathlib.Path:
     """Synchronous save of a tree (nested dicts / tuples of tensors,
-    arrays or numbers) with atomic publish.  Returns the final dir."""
-    return _write(pathlib.Path(path), _snapshot(state), step)
+    arrays or numbers) with atomic publish.  Returns the final dir.  On
+    a process group every rank calls it; rank 0 writes, and every rank
+    returns once the step is published."""
+    snapshot = _snapshot(state)
+    root = pathlib.Path(path)
+    if _writer():
+        _write(root, snapshot, step)
+    _barrier()
+    return root / f"step_{step:08d}"
 
 
 def latest_step(path: str | pathlib.Path) -> int | None:
@@ -109,10 +136,14 @@ def latest_step(path: str | pathlib.Path) -> int | None:
 
 
 def restore(path: str | pathlib.Path, target, step: int | None = None, *,
-            device: str | torch.device = "cpu"):
+            device: str | torch.device = "cpu", mesh=None,
+            shardings=None):
     """Restore into the structure of ``target`` (a tree whose leaves have
     a ``shape``: tensors, ``meta`` tensors, arrays).  Returns (a tree of
-    tensors on ``device``, step).
+    tensors on ``device``, step).  With ``mesh`` and ``shardings`` (a
+    spec tree of ``target``'s structure,
+    :func:`~repro_torch.distributed.param_specs.state_specs`), each leaf
+    comes back as a DTensor on ``mesh`` holding this rank's shard.
 
     Raises:
       FileNotFoundError: no complete checkpoint under ``path``.
@@ -126,6 +157,7 @@ def restore(path: str | pathlib.Path, target, step: int | None = None, *,
     d = root / f"step_{step:08d}"
     meta = json.loads((d / "meta.json").read_text())
     by_key = {m["key"]: m for m in meta["manifest"]}
+    specs = dict(tree_mod.flatten(shardings)) if mesh is not None else None
     restored = []
     for p, leaf in tree_mod.flatten(target):
         key = _key(p)
@@ -135,7 +167,11 @@ def restore(path: str | pathlib.Path, target, step: int | None = None, *,
         want = tuple(leaf.shape)
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: shape {arr.shape} != {want}")
-        restored.append((p, _to_tensor(arr, by_key[key]["dtype"], device)))
+        t = _to_tensor(arr, by_key[key]["dtype"], device)
+        if mesh is not None:
+            from repro_torch.distributed.param_specs import distribute
+            t = distribute(t, mesh, specs[p])
+        restored.append((p, t))
     return tree_mod.nest(restored), step
 
 
@@ -150,8 +186,12 @@ class AsyncCheckpointer:
         self.error: Exception | None = None
 
     def save(self, state, step: int) -> None:
+        """Snapshot now (on a process group: every rank, collectively)
+        and write on a thread (rank 0)."""
         self.wait()
         snapshot = _snapshot(state)
+        if not _writer():
+            return
 
         def work():
             try:
@@ -164,9 +204,12 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the last write (on a process group: every rank, until
+        rank 0's is published)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self.error is not None:
             err, self.error = self.error, None
             raise err

@@ -76,8 +76,10 @@ def bundle_counts(tokens: torch.Tensor, lengths: torch.Tensor,
     gram = im[toks[:, 0]]                     # gram_0 = XOR_j rho^j(B[c_j])
     for j in range(1, n):
         gram = torch.bitwise_xor(gram, bitops.rho(im[toks[:, j]], j))
-    # Grams at i >= max(m) are masked out for every row: stop there.
-    for i in range(min(g, int(m.max()))):
+    # Grams at i >= max(m) are masked out for every row: stop there (on
+    # meta, where there are no lengths to read, run every gram).
+    stop = g if m.device.type == "meta" else min(g, int(m.max()))
+    for i in range(stop):
         valid = (i < m)[:, None]
         counts += torch.where(valid, bitops.unpack_bits(gram), 0).to(torch.int32)
         nxt_tok = toks[:, min(i + n, length - 1)]

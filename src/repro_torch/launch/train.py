@@ -1,4 +1,4 @@
-"""Training driver: checkpoint/restart + monitoring on one device.
+"""Training driver: mesh + checkpoint/restart + monitoring.
 
 Counterpart of :mod:`repro.launch.train`, with ``repro``'s flags, on the
 card unless ``--device cpu``:
@@ -7,6 +7,8 @@ card unless ``--device cpu``:
         --global-batch 32 --seq-len 256 [--ckpt-dir ckpt/]
     python -m repro_torch.launch.train --arch stablelm-3b --full \\
         --steps 8 --global-batch 8 --seq-len 512     # 2.8 B params
+    torchrun --nproc-per-node N -m repro_torch.launch.train \\
+        --arch stablelm-3b --mesh host               # N ranks
 
 The model is ``repro``'s ``init_lm(jax.random.key(0), cfg)`` drawn
 through the port's Threefry (the kernel on the card) and the data
@@ -14,16 +16,25 @@ through the port's Threefry (the kernel on the card) and the data
 checkpoints every ``--ckpt-every`` steps in ``repro``'s format; a run
 given a ``--ckpt-dir`` that holds one resumes from its newest step and
 replays the same data order (the batch is a function of the step).
-``train(..., n_layers=)`` cuts the depth.  ``--mesh none``, and
-``--mesh host`` on one visible device, train on that device; training
-across ranks or devices (``--mesh prod``, a host mesh of several) is not
-ported yet and raises rather than train on one device.
+``train(..., n_layers=)`` cuts the depth.
+
+Meshes, as in ``repro``: ``--mesh none`` trains on this process's
+device; ``--mesh host`` on a process group of several ranks (under
+``torchrun``) trains on the ranks' 1-D ``("data",)`` host mesh, and on
+one rank without a mesh (``train(..., host_shape=(d, m))`` lays the
+ranks out as a ``("data", "model")`` mesh instead, one rank included);
+``--mesh prod`` trains on the 16x16 production mesh and needs 256 ranks.
+On a mesh the parameters, the moments and each global batch are
+DTensors placed by ``repro``'s ``TRAIN_RULES``
+(:mod:`repro_torch.distributed.param_specs`), every rank draws the same
+weights and keeps its shards, and checkpoints hold the full arrays.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -35,28 +46,36 @@ from repro_torch.configs import get_config
 from repro_torch.data import lm_data
 from repro_torch.device import resolve_device
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.distributed import param_specs, sharding
+from repro_torch.launch.mesh import (check_production_world, make_host_mesh,
+                                    make_production_mesh)
 from repro_torch.train import train_step as ts
 from repro_torch.train.optimizer import OptConfig
 
-NOT_PORTED = ("training across ranks or devices is not ported yet "
-              "(ROADMAP queue 1, item 12); ")
 
+def make_mesh(mesh_kind: str, dev: torch.device,
+              host_shape: tuple[int, int] | None = None):
+    """The mesh ``mesh_kind`` names on ``dev``'s ranks (``None``: train
+    without one: ``none``, or ``host`` on one rank with no
+    ``host_shape``).  A mesh joins the default process group, made here
+    from the environment if none exists
+    (:func:`repro_torch.distributed.sharding.init_process_group`).
 
-def check_mesh(mesh_kind: str, dev: torch.device) -> None:
-    """Raise unless ``mesh_kind`` on ``dev`` means one device."""
-    if mesh_kind == "prod":
-        raise NotImplementedError(NOT_PORTED + "--mesh prod needs it")
-    ranks = dist.get_world_size() if dist.is_initialized() else 1
-    devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if ranks > 1:
-        raise NotImplementedError(
-            NOT_PORTED + f"this process is one of {ranks} ranks")
-    if mesh_kind == "host" and devices > 1:
-        raise NotImplementedError(
-            NOT_PORTED + f"--mesh host sees {devices} devices; pass "
-            "--mesh none or make one visible")
-    if mesh_kind not in ("host", "none"):
+    Raises:
+      ValueError: an unknown kind, or ``prod`` on a world size other
+        than 256.
+    """
+    if mesh_kind not in ("host", "prod", "none"):
         raise ValueError(f"unknown mesh {mesh_kind!r}")
+    ranks = dist.get_world_size() if dist.is_initialized() else int(
+        os.environ.get("WORLD_SIZE", "1"))
+    if mesh_kind == "none" or (mesh_kind == "host" and host_shape is None
+                               and ranks == 1):
+        return None                   # one rank: no mesh, as in repro
+    sharding.init_process_group(dev)
+    if mesh_kind == "prod":
+        return make_production_mesh(device=dev)
+    return make_host_mesh(host_shape, device=dev)
 
 
 def make_batch_fn(cfg, dc: lm_data.DataConfig, device: torch.device):
@@ -66,7 +85,7 @@ def make_batch_fn(cfg, dc: lm_data.DataConfig, device: torch.device):
     rng = np.random.default_rng(dc.seed + 17)
 
     def at(step: int) -> dict:
-        batch = lm_data.batch_at(dc, step)
+        batch = lm_data.batch_at(dc, step)   # the global batch
         b = dc.global_batch
         if cfg.family == "audio":
             batch["enc_embeds"] = rng.normal(
@@ -84,21 +103,32 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def place_batch(batch: dict, mesh) -> dict:
+    """A global batch split by its placements (each rank keeps its rows;
+    every rank made the same batch)."""
+    specs = param_specs.batch_specs(batch, mesh, sharding.TRAIN_RULES)
+    return {k: param_specs.distribute(v, mesh, specs[k])
+            for k, v in batch.items()}
+
+
 def train(arch: str, *, steps: int, global_batch: int, seq_len: int,
           smoke: bool = True, mesh_kind: str = "host",
           ckpt_dir: str | None = None, ckpt_every: int = 50,
           peak_lr: float = 3e-3, log_every: int = 10,
           device: str | torch.device | None = None,
-          n_layers: int | None = None) -> dict:
+          n_layers: int | None = None,
+          host_shape: tuple[int, int] | None = None) -> dict:
     """Train ``arch`` for ``steps`` steps (from the newest checkpoint in
     ``ckpt_dir`` when there is one).  Returns ``final_loss`` and, for the
     steps this call ran, ``losses``, ``grad_norms`` and ``step_s`` (wall
     seconds a step, after a device sync), with ``resumed_from`` (the first
     step run), ``restore_s`` (reading the checkpoint into a state),
     ``save_s`` (seconds the loop spent in checkpoint calls: the
-    snapshots, and the last write's wait) and ``num_params``."""
+    snapshots, and the last write's wait), ``num_params`` and ``mesh``
+    (its shape, or None)."""
     dev = resolve_device(device)
-    check_mesh(mesh_kind, dev)
+    mesh = make_mesh(mesh_kind, dev, host_shape)
+    rules = sharding.TRAIN_RULES
     cfg = get_config(arch, smoke=smoke)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -113,24 +143,36 @@ def train(arch: str, *, steps: int, global_batch: int, seq_len: int,
     step_fn = ts.make_train_step(cfg, tc)
     monitor = ft.StragglerMonitor()
     acp = ck.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    rank = dist.get_rank() if mesh is not None else 0
+    worker = f"worker{rank}"
 
     state, start, restore_s, save_s = None, 0, 0.0, 0.0
     if acp and ck.latest_step(ckpt_dir) is not None:
         t0 = time.perf_counter()
         target = ts.init_train_state(0, cfg, tc, device="meta").tree()
-        tree, start = ck.restore(ckpt_dir, target, device=dev)
+        specs = (param_specs.state_specs(target, mesh, rules)
+                 if mesh is not None else None)
+        tree, start = ck.restore(ckpt_dir, target, device=dev, mesh=mesh,
+                                 shardings=specs)
         state = ts.TrainState.from_tree(tree, cfg, tc)
         del tree
         _sync(dev)
         restore_s = time.perf_counter() - t0
-        print(f"resumed from step {start}")
+        if rank == 0:
+            print(f"resumed from step {start}")
     if state is None:
-        state = ts.init_train_state(0, cfg, tc, device=dev)
+        state = ts.init_train_state(0, cfg, tc, device=dev, mesh=mesh,
+                                    rules=rules)
 
     losses, norms, secs = [], [], []
     for i in range(start, steps):
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch_at(i))
+        batch = batch_at(i)
+        if mesh is not None:
+            with sharding.use_rules(mesh, rules):
+                state, metrics = step_fn(state, place_batch(batch, mesh))
+        else:
+            state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
         gnorm = float(metrics["grad_norm"])
         _sync(dev)
@@ -138,8 +180,8 @@ def train(arch: str, *, steps: int, global_batch: int, seq_len: int,
         losses.append(loss)
         norms.append(gnorm)
         secs.append(dt)
-        monitor.observe("worker0", i, dt)
-        if i % log_every == 0 or i == steps - 1:
+        monitor.observe(worker, i, dt)
+        if rank == 0 and (i % log_every == 0 or i == steps - 1):
             print(f"step {i:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
                   f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f}ms",
                   flush=True)
@@ -155,7 +197,8 @@ def train(arch: str, *, steps: int, global_batch: int, seq_len: int,
     return {"final_loss": losses[-1] if losses else None, "losses": losses,
             "grad_norms": norms, "step_s": secs, "resumed_from": start,
             "restore_s": restore_s, "save_s": save_s,
-            "num_params": sum(p.numel() for p in state.params.parameters())}
+            "num_params": sum(p.numel() for p in state.params.parameters()),
+            "mesh": tuple(mesh.shape) if mesh is not None else None}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -176,7 +219,9 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     try:
         dev = resolve_device(args.device)
-        check_mesh(args.mesh, dev)
+        if args.mesh == "prod":
+            sharding.init_process_group(dev)
+            check_production_world()
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
     train(args.arch, steps=args.steps, global_batch=args.global_batch,

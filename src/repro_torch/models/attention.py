@@ -16,8 +16,10 @@ parts; K/V are up-projected from a compressed latent c (kv_lora wide) that
 is also what the decode cache stores (``blocks._mla_decode`` uses the
 absorbed form).
 
-``repro``'s sharding constraints do nothing on one card and are left out;
-:func:`head_padding_plan` runs with tp = 1 (no padding).
+``repro``'s sharding constraints sit at its lines
+(:func:`repro_torch.distributed.sharding.constrain_safe`: a no-op off a
+mesh), and :func:`head_padding_plan` pads the heads to the active rules'
+model axis (tp = 1, no padding, off a mesh).
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import AttnConfig, ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.layers import Keys
 
@@ -36,14 +40,18 @@ NEG_INF = -1e30
 
 
 def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("...d,dhk->...hk", x, w)`` as one matmul."""
-    y = x @ w.reshape(w.shape[0], -1)
+    """``einsum("...d,dhk->...hk", x, w)`` as one matmul.  On a mesh the
+    merged head axis is split again only where the split falls on whole
+    heads (forward and gradient)."""
+    y = x @ sharding.pin_grad(w.reshape(w.shape[0], -1))
+    y = sharding.split_ready(y, y.ndim - 1, w.shape[1])
     return y.reshape(x.shape[:-1] + w.shape[1:])
 
 
 def out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("...hv,hvd->...d", o, w)`` as one matmul."""
-    return o.reshape(o.shape[:-2] + (-1,)) @ w.reshape(-1, w.shape[-1])
+    return (sharding.pin_grad(o.reshape(o.shape[:-2] + (-1,)))
+            @ sharding.pin_grad(w.reshape(-1, w.shape[-1])))
 
 
 # -- init ----------------------------------------------------------------------
@@ -125,7 +133,7 @@ def pad_heads(q: torch.Tensor, k: torch.Tensor | None,
     def padkv(t):
         if t is None or t.shape[-2] == kvp:
             return t
-        return F.pad(t, (0, 0, 0, kvp - t.shape[-2]))
+        return layers.pad_zeros(t, -2, after=kvp - t.shape[-2])
     return qp, padkv(k), padkv(v)
 
 
@@ -164,7 +172,14 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Returns:
       ``(B, Sq, H, dv)``.
+
+    DTensor operands (on a mesh) run on each rank's block of batches and
+    heads: see :func:`_local_blockwise`.
     """
+    if isinstance(q, DTensor):
+        return _local_blockwise(
+            q, k, v, kv_valid, q_pos0=q_pos0, causal=causal, window=window,
+            prefix_len=prefix_len, q_chunk=q_chunk, kv_chunk=kv_chunk)
     b, sq, h, dh = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -230,6 +245,56 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :sq]
 
 
+def _local_blockwise(q, k, v, kv_valid, **kw) -> torch.Tensor:
+    """``blockwise_attention`` of DTensors as ``shard_map`` runs it: each
+    rank attends its own batches and query heads, whole along the
+    sequence (``local_map``).  K / V follow the query's batch split;
+    their kv heads follow its head split where it falls on whole kv
+    heads, and otherwise stay whole, each rank taking the kv heads its
+    query heads read (GSPMD's layout for ``kv_heads`` replicated).  The
+    chunk loop then runs on plain tensors: DTensor has no rule for some
+    of its ops (the padding, the products' merged batch axes) and would
+    dispatch thousands of small ones."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    h, kv = q.shape[2], k.shape[2]
+    g = h // kv
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in q.placements]
+    place = [pl if isinstance(pl, Shard) and pl.dim in (0, 2)
+             else Replicate() for pl in q.placements]
+    (_, _, hl, _), (_, _, h0, _) = compute_local_shape_and_global_offset(
+        q.shape, mesh, place)
+    if hl < h and hl % g and g % hl:         # a rank's heads straddle groups
+        place, hl, h0 = rows, h, 0
+    q = q.redistribute(mesh, place)
+    split = hl < h and hl % g == 0           # query heads on whole kv heads
+    kv_place = place if split else rows
+    kv_grad = [Partial() if hl < h and not split and isinstance(pl, Shard)
+               and pl.dim == 2 else kp for pl, kp in zip(place, kv_place)]
+    k0, kn = (h0 // g, 1) if hl < h and not split else (0, k.shape[2])
+
+    def run(q, k, v, kv_valid):
+        if kn < k.shape[2]:                  # the kv head these heads read
+            k, v = k[:, :, k0:k0 + kn], v[:, :, k0:k0 + kn]
+        return blockwise_attention(q, k, v, kv_valid=kv_valid, **kw)
+
+    args = [q] + [t.redistribute(mesh, kv_place) for t in (k, v)]
+    if kv_valid is not None:
+        kv_valid = sharding.as_dtensor(kv_valid, mesh, rows)
+    return local_map(run, out_placements=place,
+                     in_placements=(place, kv_place, kv_place,
+                                    rows if kv_valid is not None else None),
+                     in_grad_placements=(place, kv_grad, kv_grad,
+                                         rows if kv_valid is not None
+                                         else None),
+                     device_mesh=mesh)(*args, kv_valid)
+
+
 # -- GQA forward ---------------------------------------------------------------
 
 def gqa_forward(p, x: torch.Tensor, a: AttnConfig, *,
@@ -247,6 +312,9 @@ def gqa_forward(p, x: torch.Tensor, a: AttnConfig, *,
     q = proj(x, p["wq"])
     k = proj(src, p["wk"])
     v = proj(src, p["wv"])
+    q = sharding.constrain_safe(q, ("batch", "seq", "heads", None))
+    k = sharding.constrain_safe(k, ("batch", "kv_seq", "kv_heads", None))
+    v = sharding.constrain_safe(v, ("batch", "kv_seq", "kv_heads", None))
 
     rot = int(a.head_dim * a.rope_fraction)
     if rot and kv_x is None:
@@ -254,12 +322,14 @@ def gqa_forward(p, x: torch.Tensor, a: AttnConfig, *,
         q = layers.apply_rope(q, cos[None], sin[None], rot)
         k = layers.apply_rope(k, cos[None], sin[None], rot)
 
-    # TP-divisibility head padding; on one card (tp = 1) there is none.
-    # The cache (return_kv) keeps the ORIGINAL kv heads.
-    plan = head_padding_plan(a.num_heads, a.num_kv_heads, 1)
+    # TP-divisibility head padding to the active rules' model axis (none
+    # off a mesh).  The cache (return_kv) keeps the ORIGINAL kv heads.
+    plan = head_padding_plan(a.num_heads, a.num_kv_heads,
+                             sharding.axis_size("heads"))
     k_orig, v_orig = k, v
     if plan is not None:
         q, k, v = pad_heads(q, k, v, plan)
+        q = sharding.constrain_safe(q, ("batch", "seq", "heads", None))
 
     q_pos0 = positions[0] if positions.ndim else positions
     out = blockwise_attention(
@@ -303,6 +373,7 @@ def mla_forward(p, x: torch.Tensor, a: AttnConfig, *,
     k = torch.cat(
         [k_nope, k_rope.expand(b, s, a.num_heads, a.rope_head_dim)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
+    qq = sharding.constrain_safe(qq, ("batch", "seq", "heads", None))
 
     out = blockwise_attention(qq, k, vv, q_pos0=positions[0],
                               kv_valid=kv_valid, causal=True,

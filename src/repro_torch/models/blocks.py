@@ -26,8 +26,10 @@ token's entries into the cache it is given (:func:`_store`); a
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention, layers, moe as moe_mod, \
     ssm as ssm_mod
 from repro_torch.models.attention import out_proj, proj
@@ -85,6 +87,17 @@ def init_block(keys: Keys, cfg: ModelConfig, kind: str) -> dict:
 
 # -- full-sequence forward (train / prefill) ------------------------------------
 
+def gather_seq(h: torch.Tensor) -> torch.Tensor:
+    """``h`` with its sequence axis whole: the residual stream going into
+    a branch's norm and projections (sequence parallelism's all-gather,
+    which GSPMD inserts in ``repro``), and a branch's output going into
+    the residual add, so that the add's gradient reaches the branch's
+    products whole.  DTensor cannot flatten a sequence-sharded axis into
+    a product's rows (nor, in some versions, into a norm scale's
+    gradient).  A no-op off a mesh."""
+    return sharding.constrain_safe(h, ("batch", "seq", None))
+
+
 def block_forward(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                   positions: torch.Tensor, prefix_len: int = 0,
                   kv_valid: torch.Tensor | None = None,
@@ -98,16 +111,20 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     a = cfg.attn
     window = a.window if (a and kind == "hybrid_swa") else None
     causal = kind != "enc"
+    # Sequence-parallel residual stream (no-op outside a mesh / at decode).
+    x = sharding.constrain_safe(x, ("batch", "residual_seq", None))
 
     if kind == "ssm":
-        h = layers.apply_norm(p["ln1"], x, cfg.norm)
+        h = layers.apply_norm(p["ln1"], gather_seq(x), cfg.norm)
         if return_cache:
             y, cache = ssm_forward_with_state(p["ssm"], h, cfg)
         else:
             y = ssm_mod.ssm_forward(p["ssm"], h, cfg, cfg.ssm)
-        return x + y, aux, cache
+        out = sharding.constrain_safe(x + gather_seq(y),
+                                      ("batch", "residual_seq", None))
+        return out, aux, cache
 
-    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    h = layers.apply_norm(p["ln1"], gather_seq(x), cfg.norm)
     if a.kind == "mla":
         out = attention.mla_forward(
             p["attn"], h, a, positions=positions, norm_kind=cfg.norm,
@@ -140,22 +157,25 @@ def block_forward(p, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                    + b[1] * layers.apply_norm(p["ssm_norm"], y_ssm, cfg.norm))
         y = y.to(x.dtype)
 
-    x = x + y
+    x = x + gather_seq(y)
 
     if kind == "dec":
-        h = layers.apply_norm(p["ln_x"], x, cfg.norm)
+        h = layers.apply_norm(p["ln_x"], gather_seq(x), cfg.norm)
         y = attention.gqa_forward(
             p["xattn"], h, a, positions=positions, causal=False,
             kv_x=enc_out, kv_valid=enc_valid,
             q_chunk=q_chunk, kv_chunk=kv_chunk)
-        x = x + y
+        x = x + gather_seq(y)
 
-    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    h = layers.apply_norm(p["ln2"], gather_seq(x), cfg.norm)
     if kind == "moe":
         y, aux = moe_mod.moe_forward(p["moe"], h, cfg, cfg.moe)
     else:
         y = layers.apply_mlp(p["mlp"], h, cfg)
-    return x + y, aux, cache
+    # Pin the block output back to the sequence-sharded residual layout.
+    out = sharding.constrain_safe(x + gather_seq(y),
+                                  ("batch", "residual_seq", None))
+    return out, aux, cache
 
 
 def ssm_forward_with_state(p, h: torch.Tensor, cfg: ModelConfig):
@@ -173,25 +193,30 @@ def _ssm_prefill_state(p, h: torch.Tensor, cfg: ModelConfig) -> dict:
     # conv cache: last d_conv-1 raw xbc inputs
     w = s.d_conv
     pad = max(w - 1 - l, 0)
-    conv_cache = torch.nn.functional.pad(
-        xbc_raw, (0, 0, pad, 0))[:, -(w - 1):, :]
+    conv_cache = layers.pad_zeros(xbc_raw, 1, before=pad)[:, -(w - 1):, :]
 
     xbc = ssm_mod._causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xs = xbc[..., :d_in].reshape(bsz, l, nh, s.head_dim)
     bmat = xbc[..., d_in:d_in + gn].reshape(bsz, l, s.n_groups, s.d_state)
     dt = ssm_mod.softplus(dt_raw.to(f32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])
+    xs = sharding.constrain_safe(xs, ("batch", "seq", "ssm_heads", None))
+    state = ssm_mod.by_heads(_final_state, xs, ((bmat, 2), (dt, 2), (xs, 2),
+                                                (a, 0)), out_dim=1)
+    return {"conv": conv_cache, "state": state}
+
+
+def _final_state(bmat, dt, xs, a) -> torch.Tensor:
+    """state = sum_t exp(sum_{k>t} adt_k) dt_t B_t x_t^T: (B, H, P, N)."""
+    f32 = torch.float32
     adt = dt * a                                           # (B, L, H)
-    hpg = nh // s.n_groups
+    hpg = xs.shape[2] // bmat.shape[2]
     bh = torch.repeat_interleave(bmat, hpg, dim=2)         # (B, L, H, N)
     xdt = xs * dt[..., None]
-
-    # state = sum_t exp(sum_{k>t} adt_k) * dt_t * B_t x_t^T
     acs = torch.cumsum(adt, dim=1)
     decay = torch.exp(acs[:, -1:, :] - acs)                # (B, L, H)
-    state = torch.einsum("blhn,blh,blhp->bhpn", bh.to(f32), decay,
-                         xdt.to(f32))
-    return {"conv": conv_cache, "state": state}
+    return torch.einsum("blhn,blh,blhp->bhpn", bh.to(f32), decay,
+                        xdt.to(f32))
 
 
 # -- decode step -----------------------------------------------------------------
@@ -223,9 +248,17 @@ def cached_attention(q: torch.Tensor, cache: dict, cur_pos: int,
     b, s, kv, dh = k.shape
     h, dv = q.shape[1], v.shape[-1]
     g = h // kv
-    heads = torch.arange(kv, device=q.device)
-    qblk = q.new_zeros((b, kv, kv, g, dh))
-    qblk[:, heads, heads] = q.reshape(b, kv, g, dh)
+    on_mesh = isinstance(q, DTensor)
+    if on_mesh:
+        # DTensor has no rule for the indexed writes and reads below: the
+        # same block-diagonal layout by a product with the identity
+        # (exact: one term of each sum is not 0)
+        eye = torch.eye(kv, dtype=q.dtype, device=q.device)
+        qblk = torch.einsum("bkgd,kj->bkjgd", q.reshape(b, kv, g, dh), eye)
+    else:
+        heads = torch.arange(kv, device=q.device)
+        qblk = q.new_zeros((b, kv, kv, g, dh))
+        qblk[:, heads, heads] = q.reshape(b, kv, g, dh)
     qblk = qblk.permute(0, 1, 3, 2, 4).reshape(b, h, kv * dh)
     # operands in the cache's dtype, float32 accumulation
     logits = _bmm_f32(qblk, k.view(b, s, kv * dh).transpose(1, 2))  # (B,H,S)
@@ -236,6 +269,9 @@ def cached_attention(q: torch.Tensor, cache: dict, cur_pos: int,
     logits = torch.where(valid[:, None, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.bmm(w, v.view(b, s, kv * dv))                # (B, H, KV dv)
+    if on_mesh:
+        return torch.einsum("bkgjv,kj->bkgv", out.view(b, kv, g, kv, dv),
+                            eye.to(out.dtype)).reshape(b, h, dv)
     qh = torch.arange(h, device=q.device)
     return out.view(b, h, kv, dv)[:, qh, qh // g]
 
@@ -246,10 +282,9 @@ def _store(cache: dict, names: tuple[str, ...],
     """Write one token's cache entries at slot (pos or pos % ring), in
     place (``repro``'s ``dynamic_update_slice``)."""
     slot = cur_pos % ring if ring else cur_pos
-    idx = torch.tensor([slot], device=cache["kpos"].device)
     for name, val in zip(names, values):
-        cache[name].index_copy_(1, idx, val.to(cache[name].dtype))
-    cache["kpos"].index_fill_(1, idx, cur_pos)
+        sharding.write_slot(cache[name], 1, slot, val)
+    sharding.write_slot(cache["kpos"], 1, slot, cur_pos)
     return cache
 
 
@@ -288,9 +323,10 @@ def block_decode(p, x: torch.Tensor, cache: dict, cfg: ModelConfig,
         attn_cache = _store(attn_cache, ("k", "v"),
                             (k1[:, None], v1[:, None]), cur_pos,
                             ring if window is not None else None)
-        # q-side head padding (the cache keeps the original kv heads); on
-        # one card (tp = 1) there is none.
-        plan = attention.head_padding_plan(a.num_heads, a.num_kv_heads, 1,
+        # q-side head padding to the model axis (the cache keeps the
+        # original kv heads); off a mesh (tp = 1) there is none.
+        plan = attention.head_padding_plan(a.num_heads, a.num_kv_heads,
+                                           sharding.axis_size("heads"),
                                            pad_kv=False)
         if plan is not None:
             qp, _, _ = attention.pad_heads(q[:, None], None, None, plan)

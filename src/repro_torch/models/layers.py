@@ -23,9 +23,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import threefry
+from repro_torch.distributed import sharding
 from repro_torch.kernels import threefry as threefry_kernel
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -135,6 +137,23 @@ class Keys:
                           device=self.device)
 
 
+def pad_zeros(x: torch.Tensor, dim: int, before: int = 0,
+              after: int = 0) -> torch.Tensor:
+    """``x`` with ``before`` / ``after`` zeros along ``dim``
+    (``F.pad``'s), as a concatenation, which DTensor runs in every
+    version (on a mesh the zeros join as replicated)."""
+    if not before and not after:
+        return x
+    dim %= x.ndim
+
+    def zeros(n):
+        return torch.zeros(x.shape[:dim] + (n,) + x.shape[dim + 1:],
+                           dtype=x.dtype, device=x.device)
+    parts = ([zeros(before)] if before else []) + [x] + (
+        [zeros(after)] if after else [])
+    return torch.cat(parts, dim=dim)
+
+
 # -- Norms -------------------------------------------------------------------
 
 def init_norm(keys: Keys, cfg: ModelConfig, d: int) -> dict:
@@ -197,6 +216,7 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = act(x @ p["w_gate"]) * h
     else:
         h = act(h)
+    h = sharding.constrain_safe(h, ("batch", "seq", "ff"))
     return h @ p["w_out"]
 
 
@@ -213,7 +233,53 @@ def init_embed(keys: Keys, cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok_embed"][tokens].to(param_dtype(cfg))
+    table = p["tok_embed"]
+    if isinstance(table, DTensor):
+        return _vocab_parallel_lookup(table, tokens).to(param_dtype(cfg))
+    return table[tokens].to(param_dtype(cfg))
+
+
+def _vocab_parallel_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` of a DTensor table as Megatron's vocab-parallel
+    embedding: the table's vocab rows stay split where they are (its
+    other splits gathered), each rank looks up the tokens that fall in
+    its rows (zeros elsewhere) and the result is a partial sum over the
+    vocab split.  DTensor's own rules for the indexed read and its
+    gradient fail for some layouts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in table.placements]
+    table = table.redistribute(mesh, rows)
+    (n, _), (lo, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, rows)
+    if isinstance(tokens, DTensor):
+        tok_place = [pl if isinstance(pl, Shard) and pl.dim == 0
+                     else Replicate() for pl in tokens.placements]
+        tokens = tokens.redistribute(mesh, tok_place)
+    else:
+        tok_place = [Replicate()] * mesh.ndim
+        tokens = DTensor.from_local(tokens, mesh, tok_place, run_check=False)
+    out_place = [Partial() if isinstance(r, Shard) else t
+                 for r, t in zip(rows, tok_place)]
+    # each rank's rows take gradients from its own tokens only: a sum
+    # over the mesh dimensions that split the tokens
+    grad_place = [Partial() if isinstance(t, Shard) and not isinstance(
+        r, Shard) else r for r, t in zip(rows, tok_place)]
+
+    def lookup(table, tokens):
+        mine = (tokens >= lo) & (tokens < lo + n)
+        got = table[(tokens - lo).clamp(0, n - 1)]
+        return got * mine[..., None].to(got.dtype)
+
+    return local_map(lookup, out_placements=out_place,
+                     in_placements=(rows, tok_place),
+                     in_grad_placements=(grad_place, tok_place),
+                     device_mesh=mesh)(table, tokens)
 
 
 def lm_logits(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

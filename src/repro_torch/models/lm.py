@@ -31,6 +31,7 @@ from repro_torch import tree as tree_mod
 from repro_torch.config import ModelConfig
 from repro_torch.core import threefry
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import blocks, layers, ssm as ssm_mod
 from repro_torch.models.attention import proj
 from repro_torch.models.blocks import Block
@@ -239,7 +240,8 @@ def encode_audio(params, frame_embeds: torch.Tensor, cfg: ModelConfig,
         h, _, _ = _run_block(blk, h, remat, positions=pos,
                              kv_valid=enc_valid, q_chunk=q_chunk,
                              kv_chunk=kv_chunk)
-    return layers.apply_norm(params["enc_norm"], h, cfg.norm).to(h.dtype)
+    return layers.apply_norm(params["enc_norm"], blocks.gather_seq(h),
+                             cfg.norm).to(h.dtype)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -273,6 +275,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     if cfg.pos == "sinusoidal":
         h = h + layers.sinusoidal_embed(positions,
                                         cfg.d_model)[None].to(h.dtype)
+    h = sharding.constrain_safe(h, ("batch", "seq", None))
 
     enc_out = None
     if cfg.is_encdec:
@@ -300,10 +303,12 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         caches.append(tree_map(lambda *ls: torch.stack(ls), *seg_caches)
                       if return_caches and seg_caches else None)
 
-    h = layers.apply_norm(params["final_norm"], h, cfg.norm).to(h.dtype)
+    h = layers.apply_norm(params["final_norm"], blocks.gather_seq(h),
+                          cfg.norm).to(h.dtype)
     if return_hidden:
         return h, aux_total, caches
     logits = layers.lm_logits(params["embed"], h, cfg)
+    logits = sharding.constrain_safe(logits, ("batch", "seq", "vocab"))
     return logits, aux_total, caches
 
 
@@ -382,6 +387,7 @@ def decode_step(params, token: torch.Tensor, caches: list, cur_pos: int,
     if cfg.pos == "sinusoidal":
         pos = torch.tensor([[cur_pos]], device=h.device)
         h = h + layers.sinusoidal_embed(pos, cfg.d_model).to(h.dtype)
+    h = sharding.constrain_safe(h, ("batch", None, None))
 
     for seg, seg_cache, (kind, _) in zip(params["segments"], caches,
                                          segments(cfg)):

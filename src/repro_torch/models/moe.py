@@ -18,8 +18,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.layers import Keys
 
@@ -53,6 +55,81 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _experts(dispatch, combine, xg, e_in, e_gate, e_out,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Token exchange + expert FFN: (G, gs, E, C) dispatch / combine and
+    (G, gs, d) tokens -> (G, gs, d)."""
+    ein = torch.einsum("gtec,gtd->gecd", dispatch, xg)        # (G,E,C,d)
+    ein = sharding.constrain_safe(ein, ("expert_group", "experts", None, None))
+    h = torch.einsum("gecd,edf->gecf", ein, e_in)
+    if e_gate is not None:
+        h = layers.act_fn(cfg.act)(
+            torch.einsum("gecd,edf->gecf", ein, e_gate)) * h
+    else:
+        h = layers.act_fn(cfg.act)(h)
+    eout = torch.einsum("gecf,efd->gecd", h, e_out)           # (G,E,C,d)
+    eout = sharding.constrain_safe(eout,
+                                   ("expert_group", "experts", None, None))
+    return torch.einsum("gecd,gtec->gtd", eout.to(xg.dtype),
+                        combine.to(xg.dtype))
+
+
+class _SumOver(torch.autograd.Function):
+    """A sum over a process group whose result every rank holds: the
+    gradient of each rank's part is the result's gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as fc
+        return fc.all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _local_experts(dispatch, combine, xg, weights, cfg: ModelConfig):
+    """:func:`_experts` of DTensors, as ``shard_map`` runs an
+    expert-parallel FFN: each rank runs its expert groups' tokens
+    through its experts, and the experts' partial outputs are summed
+    over the mesh dimensions that split the experts.  DTensor's einsum
+    rules merge a sharded expert axis into a product's batch, which some
+    versions refuse."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = combine.device_mesh
+    spec = sharding.safe_spec(tuple(combine.shape),
+                              ("expert_group", None, "experts", None))
+    place = sharding.placements(spec, mesh)            # (G, gs, E, C)
+    groups = [isinstance(pl, Shard) and pl.dim == 0 for pl in place]
+    experts = [isinstance(pl, Shard) and pl.dim == 2 for pl in place]
+    tokens = [Shard(0) if g else Replicate() for g in groups]
+    w_place = [Shard(0) if e else Replicate() for e in experts]
+    # a rank's tokens meet only its experts, its experts only its tokens
+    tokens_grad = [Partial() if e else pl for e, pl in zip(experts, tokens)]
+    w_grad = [Partial() if g else pl for g, pl in zip(groups, w_place)]
+    over = [mesh.get_group(i) for i, e in enumerate(experts) if e]
+
+    def run(dispatch, combine, xg, e_in, e_gate, e_out):
+        y = _experts(dispatch, combine, xg, e_in, e_gate, e_out, cfg)
+        for group in over:
+            y = _SumOver.apply(y, group)
+        return y
+
+    ws = tuple(None if w is None else w_place for w in weights)
+    args = [t.redistribute(mesh, pl) for t, pl in
+            ((dispatch, place), (combine, place), (xg, tokens))] + [
+        None if w is None else w.redistribute(mesh, w_place)
+        for w in weights]
+    return local_map(
+        run, out_placements=tokens,
+        in_placements=(place, place, tokens) + ws,
+        in_grad_placements=(place, place, tokens_grad) + tuple(
+            None if w is None else w_grad for w in ws),
+        device_mesh=mesh)(*args)
+
+
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, m: MoEConfig
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,d), aux_loss scalar)."""
@@ -60,11 +137,15 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, m: MoEConfig
     t = b * s
     gs = min(m.group_size, t)
     pad = (-t) % gs
+    # DTensor cannot merge a sequence-sharded axis into the token axis:
+    # gather the sequence first (GSPMD reshards seq -> group in one step)
+    x = sharding.constrain_safe(x, ("batch", None, None))
     xt = x.reshape(t, d)
     if pad:
-        xt = torch.nn.functional.pad(xt, (0, 0, 0, pad))
+        xt = layers.pad_zeros(xt, 0, after=pad)
     g = xt.shape[0] // gs
     xg = xt.reshape(g, gs, d)
+    xg = sharding.constrain_safe(xg, ("expert_group", None, None))
     f32 = torch.float32
 
     # Router: operands in the activations' dtype, float32 accumulation.
@@ -87,20 +168,15 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, m: MoEConfig
     cap_oh = cap_oh * keep[..., None].to(f32)                # (G,gs,k,E,C)
 
     combine = torch.einsum("gtk,gtkec->gtec", weights, cap_oh)  # (G,gs,E,C)
-    combine = combine.to(torch.bfloat16)
+    combine = sharding.constrain_safe(
+        combine.to(torch.bfloat16), ("expert_group", None, "experts", None))
     dispatch = (combine > 0).to(x.dtype)
 
-    # Token exchange + expert FFN.
-    ein = torch.einsum("gtec,gtd->gecd", dispatch, xg)        # (G,E,C,d)
-    h = torch.einsum("gecd,edf->gecf", ein, p["e_in"])
-    if cfg.glu:
-        h = layers.act_fn(cfg.act)(
-            torch.einsum("gecd,edf->gecf", ein, p["e_gate"])) * h
+    weights = (p["e_in"], p["e_gate"] if cfg.glu else None, p["e_out"])
+    if isinstance(combine, DTensor):
+        y = _local_experts(dispatch, combine, xg, weights, cfg)
     else:
-        h = layers.act_fn(cfg.act)(h)
-    eout = torch.einsum("gecf,efd->gecd", h, p["e_out"])      # (G,E,C,d)
-    y = torch.einsum("gecd,gtec->gtd", eout.to(x.dtype),
-                     combine.to(x.dtype))
+        y = _experts(dispatch, combine, xg, *weights, cfg)
 
     y = y.reshape(-1, d)[:t].reshape(b, s, d)
     if m.num_shared:

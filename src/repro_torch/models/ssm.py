@@ -14,8 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig, SSMConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import layers
 from repro_torch.models.layers import Keys
 
@@ -84,7 +86,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv, width d_conv: (B, L, C) -> (B, L, C)."""
     k = w.shape[0]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = layers.pad_zeros(xbc, 1, before=k - 1)
     out = 0
     for i in range(k):
         out = out + pad[:, i:i + xbc.shape[1], :] * w[i]
@@ -94,7 +96,9 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 def _segsum(a: torch.Tensor) -> torch.Tensor:
     """(..., Q) -> (..., Q, Q): S[i,j] = sum_{k in (j, i]} a_k, -inf above diag."""
     q = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+    # a positive dim: DTensor's cumsum rule misreads -1 and scans a
+    # sharded last axis shard by shard
+    cs = torch.cumsum(a, dim=a.ndim - 1)
     diff = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
     return torch.where(mask, diff, -torch.inf)
@@ -111,32 +115,25 @@ def _split(p, x: torch.Tensor, cfg: ModelConfig, s: SSMConfig):
     return z, xbc, dt_raw, d_in, h, gn
 
 
-def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, s: SSMConfig
-                ) -> torch.Tensor:
-    """Full-sequence SSD: (B, L, d) -> (B, L, d)."""
-    bsz, l, _ = x.shape
+def _ssd(xs, dt, bmat, cmat, a, *, chunk: int) -> torch.Tensor:
+    """The chunked SSD scan: xs (B, L, H, P), dt (B, L, H), B / C
+    (B, L, G, N), a (H,) -> y (B, L, H, P) (before the skip term)."""
+    bsz, l, h, hd = xs.shape
+    g, n = bmat.shape[2:]
     f32 = torch.float32
-    z, xbc, dt_raw, d_in, h, gn = _split(p, x, cfg, s)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :d_in].reshape(bsz, l, h, s.head_dim)
-    bmat = xbc[..., d_in:d_in + gn].reshape(bsz, l, s.n_groups, s.d_state)
-    cmat = xbc[..., d_in + gn:].reshape(bsz, l, s.n_groups, s.d_state)
+    hpg = h // g                    # heads per group for broadcasting B/C
 
-    dt = softplus(dt_raw.to(f32) + p["dt_bias"])                     # (B,L,H)
-    a = -torch.exp(p["a_log"])                                       # (H,)
-    hpg = h // s.n_groups           # heads per group for broadcasting B/C
-
-    q = min(s.chunk, l)
+    q = min(chunk, l)
     pad = (-l) % q
 
     def padl(t):
-        return F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad])
+        return layers.pad_zeros(t, 1, after=pad)
     xs_, b_, c_, dt_ = map(padl, (xs, bmat, cmat, dt))
     lp = xs_.shape[1]
     nc = lp // q
-    xs_ = xs_.reshape(bsz, nc, q, h, s.head_dim)
-    b_ = b_.reshape(bsz, nc, q, s.n_groups, s.d_state)
-    c_ = c_.reshape(bsz, nc, q, s.n_groups, s.d_state)
+    xs_ = xs_.reshape(bsz, nc, q, h, hd)
+    b_ = b_.reshape(bsz, nc, q, g, n)
+    c_ = c_.reshape(bsz, nc, q, g, n)
     dt_ = dt_.reshape(bsz, nc, q, h)
 
     adt = dt_ * a                                          # (B,nc,Q,H)
@@ -156,8 +153,7 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, s: SSMConfig
                     bh, decay_states, xdt)                 # (B,nc,H,P,N)
     chunk_decay = torch.exp(acs[:, :, -1, :])              # (B,nc,H)
 
-    carry = torch.zeros((bsz, h, s.head_dim, s.d_state), dtype=f32,
-                        device=x.device)
+    carry = torch.zeros((bsz, h, hd, n), dtype=f32, device=xs.device)
     prev = []
     states = states.to(f32)
     for ci in range(nc):                      # emit state BEFORE chunk
@@ -169,7 +165,67 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, s: SSMConfig
     y_off = einsum("bcqhn,bchpn,bcqh->bcqhp",
                    ch, prev_states.to(ch.dtype), state_decay)
 
-    y = (y_diag + y_off).reshape(bsz, lp, h, s.head_dim)[:, :l]
+    return (y_diag + y_off).reshape(bsz, lp, h, hd)[:, :l]
+
+
+def by_heads(fn, like, args, *, out_dim: int, **kw) -> torch.Tensor:
+    """``fn(*tensors, **kw)`` of per-(batch, head) work.  ``args`` pairs
+    each tensor with the dimension of its heads (or groups of heads).
+    Plain tensors run as they are; DTensors as ``shard_map`` runs them:
+    each rank its own batches (dim 0) and heads, split as ``like``'s
+    are (groups split with them where they divide, else whole), under
+    ``local_map``.  DTensor's einsum rules merge a sharded head axis
+    into a product's batch, which some versions refuse."""
+    if not isinstance(like, DTensor):
+        return fn(*(t for t, _ in args), **kw)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = like.device_mesh
+    batch = [isinstance(pl, Shard) and pl.dim == 0 for pl in like.placements]
+    heads = [isinstance(pl, Shard) and pl.dim == 2 for pl in like.placements]
+    ways = 1
+    for i, hd in enumerate(heads):
+        ways *= mesh.size(i) if hd else 1
+    if any(t.shape[d] > 1 and t.shape[d] % ways for t, d in args):
+        heads = [False] * len(heads)      # groups that cannot split: whole
+    places, grads, local = [], [], []
+    for t, d in args:
+        rows = t.ndim > 1                              # has a batch dim
+        split = t.shape[d] > 1                         # one group: whole
+        pl = [Shard(0) if b and rows else Shard(d) if hd and split
+              else Replicate() for b, hd in zip(batch, heads)]
+        # a whole operand meets only this rank's batches and heads: the
+        # rest of its gradient comes from the other ranks
+        gr = [Partial() if isinstance(p, Replicate) and (b or hd) else p
+              for b, hd, p in zip(batch, heads, pl)]
+        places.append(pl)
+        grads.append(gr)
+        local.append(sharding.as_dtensor(t, mesh, pl))
+    out = [Shard(0) if b else Shard(out_dim) if hd else Replicate()
+           for b, hd in zip(batch, heads)]
+    return local_map(lambda *ts: fn(*ts, **kw), out_placements=out,
+                     in_placements=tuple(places),
+                     in_grad_placements=tuple(grads),
+                     device_mesh=mesh)(*local)
+
+
+def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, s: SSMConfig
+                ) -> torch.Tensor:
+    """Full-sequence SSD: (B, L, d) -> (B, L, d)."""
+    bsz, l, _ = x.shape
+    f32 = torch.float32
+    z, xbc, dt_raw, d_in, h, gn = _split(p, x, cfg, s)
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xs = xbc[..., :d_in].reshape(bsz, l, h, s.head_dim)
+    bmat = xbc[..., d_in:d_in + gn].reshape(bsz, l, s.n_groups, s.d_state)
+    cmat = xbc[..., d_in + gn:].reshape(bsz, l, s.n_groups, s.d_state)
+    xs = sharding.constrain_safe(xs, ("batch", "seq", "ssm_heads", None))
+
+    dt = softplus(dt_raw.to(f32) + p["dt_bias"])                     # (B,L,H)
+    a = -torch.exp(p["a_log"])                                       # (H,)
+    y = by_heads(_ssd, xs, ((xs, 2), (dt, 2), (bmat, 2), (cmat, 2), (a, 0)),
+                 out_dim=2, chunk=s.chunk)
     y = y + xs * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, l, d_in)
 

@@ -33,7 +33,7 @@ from repro_torch import tree as tree_mod
 def init_state(grads):
     """Error-feedback residuals, zero-initialized, shaped like grads."""
     return tree_mod.nest(
-        (p, torch.zeros(g.shape, dtype=torch.float32, device=g.device))
+        (p, torch.zeros_like(g, dtype=torch.float32))
         for p, g in tree_mod.flatten(grads))
 
 

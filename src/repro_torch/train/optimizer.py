@@ -26,6 +26,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as tree_mod
 from repro_torch.models import lm
@@ -59,12 +60,36 @@ def lr_at(step: int, oc: OptConfig) -> np.float32:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """The float32 L2 norm of every tensor together (a 0-d tensor)."""
+    """The float32 L2 norm of every tensor together (a 0-d tensor).  A
+    DTensor's sum of squares is the whole tensor's, reduced over the
+    ranks that hold its shards: the norm is the whole gradient's, as a
+    plain tensor on every rank."""
     total = None
     for x in tensors:
-        sq = torch.sum(torch.square(x.to(torch.float32)))
+        sq = full(torch.sum(torch.square(x.to(torch.float32))))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor on every rank (a
+    collective: every rank calls it); a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+@torch.no_grad()
+def assign(dst: torch.Tensor, src) -> None:
+    """Copy ``src`` (the whole value: a tensor or an array, the same on
+    every rank) into ``dst``, a plain tensor or this rank's shard of a
+    DTensor."""
+    if isinstance(src, DTensor):
+        dst.copy_(src.redistribute(dst.device_mesh, dst.placements))
+        return
+    src = torch.as_tensor(src)
+    if isinstance(dst, DTensor):
+        from repro_torch.distributed.param_specs import distribute_like
+        src = distribute_like(src.to(dst.device, dst.dtype), dst)
+    dst.copy_(src)
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -104,11 +129,11 @@ class AdamW(torch.optim.Optimizer):
         self.num_steps = 0
         for group in self.param_groups:
             for p in group["params"]:
+                # zeros_like: a DTensor parameter's moments take its
+                # placements
                 self.state[p] = {
-                    "m": torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device),
-                    "v": torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)}
+                    "m": torch.zeros_like(p, dtype=torch.float32),
+                    "v": torch.zeros_like(p, dtype=torch.float32)}
 
     @torch.no_grad()
     def step(self, grads: dict | None = None) -> dict:
@@ -159,7 +184,7 @@ class AdamW(torch.optim.Optimizer):
         for name in ("m", "v"):
             flat = dict(tree_mod.flatten(moments[name]))
             for leaf in self.leaves:
-                full = torch.as_tensor(flat[leaf.path])
+                whole = torch.as_tensor(flat[leaf.path])
                 for i, p in enumerate(leaf.params):
-                    self.state[p][name].copy_(full[i] if leaf.stacked
-                                              else full)
+                    assign(self.state[p][name],
+                           whole[i] if leaf.stacked else whole)

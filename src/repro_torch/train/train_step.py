@@ -19,11 +19,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_mod
 from repro_torch.config import ModelConfig
 from repro_torch.core import threefry
+from repro_torch.distributed import sharding
 from repro_torch.models import layers, lm
 from repro_torch.train import optimizer as opt_mod
 
@@ -83,22 +86,37 @@ class TrainState:
 
 def init_train_state(seed: int, cfg: ModelConfig, tc: TrainConfig, *,
                      device: str | torch.device | None = None,
-                     partitionable: bool = threefry.PARTITIONABLE
+                     partitionable: bool = threefry.PARTITIONABLE,
+                     mesh=None, rules: sharding.Rules | None = None
                      ) -> TrainState:
     """``repro``'s ``init_train_state(jax.random.key(seed), cfg, tc)``
     on ``device`` (``None``: ``cuda``): ``init_lm``'s weights (drawn
-    through the Threefry kernel on the card), zero moments, step 0."""
-    return TrainState(lm.init_lm(seed, cfg, device=device,
-                                 partitionable=partitionable), tc)
+    through the Threefry kernel on the card), zero moments, step 0.
+    With a ``mesh`` (a ``DeviceMesh``) every rank draws the same weights
+    and keeps its shard of each (``rules``: ``TRAIN_RULES`` by default),
+    and the moments take the parameters' placements."""
+    model = lm.init_lm(seed, cfg, device=device, partitionable=partitionable)
+    if mesh is not None:
+        from repro_torch.distributed import param_specs
+        param_specs.distribute_lm(model, mesh,
+                                  rules or sharding.TRAIN_RULES)
+    return TrainState(model, tc)
 
 
 def _ce_chunk(embed, h: torch.Tensor, labels: torch.Tensor,
               cfg: ModelConfig, z_loss: float):
     logits = layers.lm_logits(embed, h, cfg)                 # float32
+    logits = sharding.constrain_safe(logits, ("batch", "seq", "vocab"))
     mask = labels >= 0
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp_min(0).long()[..., None])[..., 0]
+    idx = labels.clamp_min(0).long()[..., None]
+    if isinstance(logits, DTensor):
+        # no gather across a vocab-sharded axis: pick the gold logit by a
+        # mask and sum it (exact: every other term is 0)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(vocab == idx, logits, 0.0).sum(logits.ndim - 1)
+    else:
+        gold = torch.gather(logits, -1, idx)[..., 0]
     ce = (lse - gold) * mask
     zl = z_loss * torch.square(lse) * mask
     return (ce + zl).sum(), mask.sum()
@@ -153,26 +171,64 @@ def make_loss_fn(cfg: ModelConfig, tc: TrainConfig):
     return loss_fn
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig,
+                    grad_shardings: dict | None = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    ``batch`` holds tensors on the state's device.  With
-    ``tc.microbatches > 1`` the batch's leading dim is split and the
-    gradients accumulate in float32 (``repro``'s sequential scan); the
-    loss is the microbatches' mean and ``ce`` / ``aux`` / ``tokens`` the
-    last microbatch's, as in ``repro``.  Metrics are 0-d tensors (``lr``
-    a float32 scalar).
+    ``batch`` holds tensors on the state's device (DTensors placed by
+    :func:`~repro_torch.distributed.param_specs.batch_specs` for a state
+    on a mesh; the step then runs under :func:`~repro_torch.distributed.
+    sharding.use_rules` with the state's mesh and
+    ``sharding.TRAIN_RULES``).  With ``tc.microbatches > 1`` the batch's
+    leading dim is split and the gradients accumulate in float32
+    (``repro``'s sequential scan); the loss is the microbatches' mean and
+    ``ce`` / ``aux`` / ``tokens`` the last microbatch's, as in ``repro``.
+    Metrics are plain 0-d tensors (``lr`` a float32 scalar).
+
+    A DTensor parameter's gradient is pinned to placements before AdamW
+    (``repro``'s ``constrain_grads``): those of ``grad_shardings``, a
+    spec tree over ``repro``'s parameter layout
+    (:func:`~repro_torch.distributed.param_specs.param_specs`), or by
+    default the parameter's own, so the data-parallel reduction of a
+    sharded parameter is a reduce-scatter.
     """
     loss_fn = make_loss_fn(cfg, tc)
 
+    specs = (dict(tree_mod.flatten(grad_shardings))
+             if grad_shardings is not None else None)
+
+    def pin(opt, grads: dict | None) -> None:
+        pinned = {}
+        for leaf in opt.leaves:
+            spec = None
+            if specs is not None:
+                spec = specs[leaf.path][1:] if leaf.stacked \
+                    else specs[leaf.path]
+            for p in leaf.params:
+                g = p.grad if grads is None else grads[p]
+                if not isinstance(g, DTensor):
+                    continue
+                place = p.placements if spec is None else \
+                    sharding.placements(spec, p.device_mesh)
+                pinned[p] = g.redistribute(p.device_mesh, place)
+        for p, g in pinned.items():
+            if grads is None:
+                p.grad = g
+            else:
+                grads[p] = g
+
     def train_step(state: TrainState, batch: dict):
+        # plain tensors made in the step meet DTensors as replicated ones
+        with implicit_replication():
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict):
         params, opt = state.params, state.opt
         opt.zero_grad(set_to_none=True)
         grads = None
         if tc.microbatches > 1:
             mb = next(iter(batch.values())).shape[0] // tc.microbatches
-            grads = {p: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {p: torch.zeros_like(p, dtype=torch.float32)
                      for g in opt.param_groups for p in g["params"]}
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
@@ -180,6 +236,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 mloss, metrics = loss_fn(params, micro)
                 mloss.backward()
+                pin(opt, None)
                 with torch.no_grad():
                     for p, acc in grads.items():
                         if p.grad is not None:
@@ -193,8 +250,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
             loss, metrics = loss_fn(params, batch)
             loss.backward()
             loss = loss.detach()
+        pin(opt, grads)
         stats = opt.step(grads)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return state, dict(metrics, loss=loss, **stats)
+        metrics = {k: opt_mod.full(v.detach()) for k, v in metrics.items()}
+        return state, dict(metrics, loss=opt_mod.full(loss), **stats)
 
     return train_step

@@ -2,7 +2,8 @@
 
 ``flatten`` walks a tree in ``jax.tree``'s order (dict keys sorted,
 tuples in order) and gives each leaf's path; ``nest`` builds the tree
-back from ``(path, leaf)`` pairs (integer keys make tuples).
+back from ``(path, leaf)`` pairs (integer keys make tuples).  A subclass
+of tuple (a sharding spec) is a leaf.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ def flatten(tree, path: tuple = ()) -> list[tuple[tuple, object]]:
     if isinstance(tree, dict):
         return [kv for k in sorted(tree) for kv in flatten(tree[k],
                                                             path + (k,))]
-    if isinstance(tree, (tuple, list)):
+    if type(tree) in (tuple, list):
         return [kv for i, v in enumerate(tree) for kv in flatten(
             v, path + (i,))]
     return [(path, tree)]

@@ -58,7 +58,10 @@ def test_no_jax_or_repro_imports_in_the_port():
             "train/optimizer.py", "train/train_step.py",
             "train/compression.py", "checkpoint/__init__.py",
             "checkpoint/checkpointer.py", "distributed/fault_tolerance.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "distributed/param_specs.py",
+            "distributed/elastic.py", "distributed/pipeline.py",
+            "launch/mesh.py", "launch/dryrun.py", "launch/dryrun_hdc.py",
+            "configs/shapes.py"} <= names
     bad = [(str(f.relative_to(PKG)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -86,7 +89,11 @@ def test_importing_the_port_loads_no_jax():
             " repro_torch.train.train_step, repro_torch.train.compression,"
             " repro_torch.checkpoint.checkpointer,"
             " repro_torch.distributed.fault_tolerance,"
-            " repro_torch.launch.train; "
+            " repro_torch.launch.train, repro_torch.distributed.param_specs,"
+            " repro_torch.distributed.elastic,"
+            " repro_torch.distributed.pipeline, repro_torch.launch.mesh,"
+            " repro_torch.launch.dryrun, repro_torch.launch.dryrun_hdc,"
+            " repro_torch.configs.shapes; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = {**os.environ, "PYTHONPATH": str(PKG.parent)}

@@ -439,7 +439,7 @@ def test_train_runs_each_family(arch):
 
 
 def test_trainer_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a process group of 256"):
         train_mod.train("stablelm-3b", steps=1, global_batch=2, seq_len=8,
                         mesh_kind="prod", device="cpu")
     if not torch.cuda.is_available():
@@ -461,4 +461,5 @@ def test_cli_trains_on_the_cpu(tmp_path):
     assert ck.latest_step(tmp_path) == 3
     bad = subprocess.run(cmd[:-4] + ["--mesh", "prod"], env=env,
                          capture_output=True, text=True, timeout=300)
-    assert bad.returncode == 2 and "not ported yet" in bad.stderr
+    assert bad.returncode == 2 and "needs a process group of 256" \
+        in bad.stderr
