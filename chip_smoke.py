@@ -166,7 +166,15 @@ no result line):
              and grad norm (finite); the first step's loss within
              ``LM_TRAIN_BF16_REL`` of a float32 copy's forward loss on the
              same batch; every Threefry launch of its ``init_lm`` kernel
-             against plain version bit for bit.  Then a restart at
+             against plain version bit for bit.  The run saves its
+             full-depth state after its last step through its
+             ``AsyncCheckpointer`` (a layer at a time to the host, under
+             ``build/``, after a check of the free disk space): the rise of
+             ``max_memory_allocated`` during the save must stay within twice
+             the state's largest tensor; the live state then runs
+             ``LM_TRAIN_FULL_MORE`` more steps, and a state restored from
+             the files runs them again within ``LM_TRAIN_RESUME_RTOL``
+             (seconds and GB on disk printed).  Then a restart at
              ``LM_TRAIN_RESTART_LAYERS`` layers of the same width: 4 steps
              with an ``AsyncCheckpointer`` save at step 2 (under
              ``build/``, deleted after), a fresh trainer restored from it
@@ -199,9 +207,29 @@ no result line):
              (``launch.dryrun`` of ``stablelm-3b`` / ``train_4k`` on a
              fake 16 x 16 group at full depth, ``launch.dryrun_hdc`` on
              both meshes): both exit 0; per-device bytes, FLOPs and
-             collectives by kind (counts of a fake group, not timings).
+             collectives by kind (counts of a fake group, not timings);
+             and on this machine's own torch (printed), one after
+             another: ``DRYRUN_ARCHS`` (the full configurations that pad
+             heads, and mamba2's) at ``DRYRUN_LAYERS`` layers, each exiting
+             0, and the SSD prefill under ``DECODE_RULES`` on a 2 x 2 gloo
+             CPU mesh (four ranks, ``--prefill-worker``) against one device
+             within ``PREFILL_RTOL``.
+15. family   the SSD, hybrid and MLA + MoE families at their published
+             full width and depth (``FAMILY_ARCHS``: mamba2-1.3b, hymba-1.5b,
+             deepseek-v2-lite-16b): ``launch.serve.serve`` with phase 12's
+             traffic, twice (equal tokens; prefill ms, decode ms a step,
+             tok/s, ``max_memory_allocated``); every Threefry launch of
+             ``init_lm`` kernel against plain version bit for bit; the bf16
+             prompt logits against a float32 copy of the weights (for
+             deepseek over its first ``FAMILY_F32_LAYERS`` layers, with the
+             share of tokens each MoE layer routes to another expert set);
+             and for the two that fit, ``launch.train.train`` with phase
+             13's step (first-step loss against a float32 copy's, finite
+             losses and grad norms, warm step, tokens/s, peak memory).
 
-The last lines are one JSON object per kernel list and
+The last lines are the card's name and power limit, one JSON object per
+kernel list, one ``[summary]`` line a phase with its headline numbers
+(they survive a cut of the output's head), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -318,6 +346,11 @@ LM_TRAIN_RESTART_LAYERS = 2
 LM_TRAIN_RESTART_STEPS = 4
 LM_TRAIN_RESTART_AT = 2
 LM_TRAIN_RESUME_RTOL = 1e-3
+#: The full-depth checkpoint: bytes a parameter of the state on disk (bf16
+#: weight, float32 m and v), and the steps run on after it, live and
+#: restored.
+LM_TRAIN_STATE_BYTES = 10
+LM_TRAIN_FULL_MORE = 2
 #: Every smoke architecture in float32, card against CPU over 3 train
 #: steps: losses and grad norms, relative (float32 sums in another
 #: order; phase 12's logits hold 1e-4).
@@ -344,10 +377,60 @@ MESH_PIPE_ATOL = 1e-5
 #: would have to use, since NCCL takes one rank a card).
 MESH_COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
                     "all_to_all_single", "send_recv")
+#: 14.4 on the card machine's own torch: the full configurations that pad
+#: heads to the model axis (starcoder2 36 / 4, hymba 25 / 5, whisper 6 / 6,
+#: paligemma 8 / 1 on 16) and mamba2's SSD, each at full width cut to
+#: DRYRUN_LAYERS layers (the faults are per layer), as CPU children on a
+#: fake 16 x 16 group; and the SSD prefill under DECODE_RULES on a 2 x 2
+#: gloo CPU mesh (four ranks) against one device, float32.
+DRYRUN_ARCHS = ("starcoder2-7b", "hymba-1.5b", "whisper-tiny",
+                "paligemma-3b", "mamba2-1.3b")
+DRYRUN_LAYERS = 2
+PREFILL_ARCHS = ("mamba2_1_3b", "hymba_1_5b")
+PREFILL_RTOL = 1e-4
+#: Phase 15: the SSD, hybrid and MLA + MoE families at their published
+#: full width and depth, with phase 12's traffic and phase 13's step; the
+#: flag says whether the model trains on one card (deepseek-v2-lite's
+#: train state, ~12 B a parameter as phase 13 measures, is ~190 GB).
+FAMILY_ARCHS = (("mamba2-1.3b", True), ("hymba-1.5b", True),
+                ("deepseek-v2-lite-16b", False))
+#: A model whose bf16 weights and a float32 copy (6 B a parameter) pass
+#: this is compared with its copy over its first FAMILY_F32_LAYERS layers
+#: at full width (deepseek-v2-lite: the dense layer and 3 MoE layers).
+FAMILY_F32_FIT_BYTES = 60e9
+FAMILY_F32_LAYERS = 4
+#: The MoE model's bf16 logits against its float32 copy: phase 12's
+#: bounds hold (deepseek-v2-lite over its first 4 layers on an NVIDIA H100
+#: 80GB HBM3 at 700 W: 4.89 % and 91.1 %, with 5.7 / 9.9 / 13.6 % of the
+#: tokens routed to another expert set in its three MoE layers, PERF.md);
+#: the flips are printed beside them.
+LM_MOE_BF16_REL = LM_BF16_REL
+LM_MOE_BF16_TOP1 = LM_BF16_TOP1
+#: The attention-free SSD model (mamba2-1.3b, 48 layers) against its
+#: float32 copy.  Its gap grows with depth as rounding accumulates in
+#: ``repro``'s own precision design (bf16 residual stream, bf16 C.B scores
+#: and chunk states): over its first 1 / 4 / 12 / 24 / 48 layers 0.65 /
+#: 1.30 / 2.37 / 3.49 / 5.15 % relative, top-1 98.1 / 96.4 / 94.1 / 92.5 /
+#: 88.3 % (NVIDIA H100 80GB HBM3, 700 W; PERF.md), where the random
+#: weights leave a median top-2 logit margin of 0.14 at a logit spread of
+#: 0.9.  Hymba (32 layers, SSD heads beside attention: 3.16 %, 93.2 %)
+#: and stablelm hold phase 12's bounds.
+LM_SSM_BF16_REL = 0.08
+LM_SSM_BF16_TOP1 = 0.85
 
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+#: Each phase's headline numbers, printed together just before the result
+#: line (a call keeps only the end of the output).
+SUMMARY: dict[str, str] = {}
+
+
+def note(phase: str, text: str) -> None:
+    SUMMARY[phase] = f"{SUMMARY[phase]}; {text}" if phase in SUMMARY \
+        else text
 
 
 def fail(msg: str) -> None:
@@ -680,6 +763,7 @@ def serving_phase(*, config, sample, db, session, main_report, card,
         f"{np.percentile(lat, 99) * 1e3:.1f} ms | {service.cohorts_run} "
         f"cohorts, mean fill {fill:.3f} | launches {json.dumps(counts)} | "
         f"{card}")
+    note("6 serving", f"service {total / wall_serve:.0f} reads/s, p50 {np.percentile(lat, 50) * 1e3:.1f} ms p99 {np.percentile(lat, 99) * 1e3:.1f} ms")
     if counts["fused_profile"] != service.cohorts_run \
             or counts["hdc_encoder"] != 0:
         fail(f"service: {counts} for {service.cohorts_run} cohorts, want "
@@ -738,6 +822,7 @@ def serving_phase(*, config, sample, db, session, main_report, card,
         f"({router.swaps} swap, retired {router.retired}) | versions "
         f"{versions} | launches {json.dumps(counts)} (read after both "
         f"pumps stopped; the counters are locked) | {card}")
+    note("6 serving", f"router {total / wall:.0f} reads/s")
     if bad:
         fail(f"routed reports differ from sequential profiles on their "
              f"admitted versions: {bad}")
@@ -952,6 +1037,7 @@ def alphabet_phase(*, space, rows, card, zero_counts, read_counts) -> None:
         f"{dbs['reference'].num_prototypes} prototypes, "
         f"{rep['total_reads']} reads, unmapped {rep['unmapped_reads']}, "
         f"multi {rep['multi_reads']}")
+    note("7 alphabet", "A = 20 cuda_fused == reference")
 
 
 def fleet_phase(*, config, sample, db, card, zero_counts,
@@ -1070,6 +1156,7 @@ def fleet_phase(*, config, sample, db, card, zero_counts,
         f"{json.dumps(dict(sorted(by_host.items())))} | versions "
         f"{sorted({h.version for h in handles})} | retire "
         f"{retire_s * 1e3:.1f} ms | launches {json.dumps(counts)} | {card}")
+    note("8 fleet", f"{reads / wall:.0f} reads/s, p99 {np.percentile(lat, 99) * 1e3:.1f} ms, reroutes {sum(h.rerouted for h in handles)}")
     say(f"[fleet] all {total} reports (rerouted ones included) == "
         f"sequential cuda_fused profiles on their admitted versions; "
         f"encoder launched {delta_batches} times (the delta alone); "
@@ -1180,6 +1267,7 @@ def shard_phase(*, config, sample, db, main_report, card, out_dir,
                      f"{json.dumps(o['launches'])}" for o in outs)
         + f" | both reports == phase 3's ({time.perf_counter() - t0:.1f} s "
         f"with start-up) | {card}")
+    note("9 shard", f"world size {world}: reports == phase 3's")
 
 
 def accel_phase(*, config, sample, db, main_report, card, int_rate,
@@ -1429,6 +1517,7 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
             f"bmm {bmm_ms:.2f} + noise {noise_ms:.2f} + rest "
             f"{read_ms - bmm_ms - noise_ms:.2f} | max_memory_allocated "
             f"{peak / 1e9:.2f} GB | {card}")
+        note("10 accel", f"{backend} {preset} {secs:.3f} s, a batch {read_ms:.2f} ms")
         say(f"[accel] {backend} {preset}: another seed's agreement differs "
             f"in {float((a_seed != a_other).float().mean()):.4f} of "
             f"{a_seed.numel()} | fault census {json.dumps(census)} | ADC "
@@ -1628,6 +1717,7 @@ def baselines_phase(*, sample, small, db, card, zero_counts,
         f"kraken2-like {mem['kraken2-like'] / 1e6:.1f} MB "
         f"({mem['kraken2-like'] / demeter:.1f}x demeter); clark-like "
         f"{mem['clark-like'] / 1e6:.1f} MB")
+    note("11 baseline", f"memory RefDB {demeter / 1e6:.1f} < MetaCache {mem['metacache-like'] / 1e6:.1f} < Kraken2 {mem['kraken2-like'] / 1e6:.1f} MB")
     if not demeter < mem["metacache-like"] < mem["kraken2-like"]:
         fail(f"the paper's memory ordering does not hold: {mem}, "
              f"demeter {demeter}")
@@ -1706,7 +1796,12 @@ class InitDraws:
             total += got.numel()
             del got, want
             torch.cuda.empty_cache()
-        shapes = ", ".join(f"{len(w)} x {m}" for w, _, m in self.drawn)
+        import collections
+
+        # a stacked bf16 leaf is drawn a layer (one key) at a time
+        runs = collections.Counter((len(w), m) for w, _, m in self.drawn)
+        shapes = ", ".join(f"{c} x ({k} x {m})" if c > 1 else f"{k} x {m}"
+                           for (k, m), c in runs.items())
         return (f"{len(self.drawn)} threefry launches (keys x draws a key: "
                 f"{shapes}; {total} draws)")
 
@@ -1765,6 +1860,8 @@ def lm_phase(*, card, zero_counts, read_counts) -> None:
             f"max_memory_allocated {peak / 1e9:.2f} GB | serve() "
             f"{wall:.1f} s with init | launches {json.dumps(counts)} | "
             f"{card}")
+        if run == "warm":
+            note("12 lm", f"{LM_ARCH} prefill {out['prefill_s'] * 1e3:.1f} ms, decode {LM_REQUESTS * LM_STEPS / out['decode_s']:.0f} tok/s, peak {peak / 1e9:.2f} GB")
     if torch.backends.cuda.matmul.allow_tf32:
         fail(f"{LM_ARCH}: serve() left TF32 on for CUDA matmuls")
     if len(draws.drawn) != counts["threefry"]:
@@ -1906,6 +2003,7 @@ def train_phase(*, card, zero_counts, read_counts) -> None:
 
     import torch
 
+    from repro_torch.checkpoint import checkpointer as ck
     from repro_torch.configs import all_archs, get_config
     from repro_torch.data import lm_data
     from repro_torch.launch import train as lm_train
@@ -1932,21 +2030,59 @@ def train_phase(*, card, zero_counts, read_counts) -> None:
     del model, model32
     torch.cuda.empty_cache()
 
+    # The run saves its full-depth state after its last step (a layer at a
+    # time to the host): room on the disk first, and the rise of the
+    # card's memory during each save recorded.
+    full_ckpt = os.path.join(ROOT, "build", "chip_smoke", "train_ckpt_full")
+    shutil.rmtree(full_ckpt, ignore_errors=True)
+    os.makedirs(full_ckpt)
+    n_params = sum(p.numel() for p in lm.init_lm(
+        0, cfg, device="meta").parameters())
+    need = n_params * LM_TRAIN_STATE_BYTES
+    free = shutil.disk_usage(full_ckpt).free
+    if free < need * 1.1:
+        fail(f"full-depth checkpoint: {free / 1e9:.1f} GB free under "
+             f"{full_ckpt}, the state needs {need / 1e9:.1f} GB "
+             f"({n_params} parameters x {LM_TRAIN_STATE_BYTES} B) and a "
+             f"tenth more")
+    saves = []
+    real_save = ck.AsyncCheckpointer.save
+
+    def measured_save(self, state, step):
+        torch.cuda.synchronize()
+        before = torch.cuda.max_memory_allocated()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        real_save(self, state, step)
+        torch.cuda.synchronize()
+        saves.append({"step": step, "rise": torch.cuda.max_memory_allocated()
+                      - base, "snapshot_s": time.perf_counter() - t0,
+                      "peak_before": before})
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     draws = InitDraws()
     t0 = time.perf_counter()
-    with draws:
-        out = lm_train.train(LM_ARCH, smoke=False, steps=LM_TRAIN_STEPS,
-                             global_batch=LM_TRAIN_BATCH,
-                             seq_len=LM_TRAIN_SEQ, log_every=1)
+    ck.AsyncCheckpointer.save = measured_save
+    try:
+        with draws:
+            out = lm_train.train(LM_ARCH, smoke=False, steps=LM_TRAIN_STEPS,
+                                 global_batch=LM_TRAIN_BATCH,
+                                 seq_len=LM_TRAIN_SEQ, log_every=1,
+                                 ckpt_dir=full_ckpt,
+                                 ckpt_every=LM_TRAIN_STEPS,
+                                 return_state=True)
+    finally:
+        ck.AsyncCheckpointer.save = real_save
     wall = time.perf_counter() - t0
     counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [x["peak_before"] for x in saves])
     if counts["threefry"] < 1 or counts["threefry"] != len(draws.drawn):
         fail(f"{LM_ARCH} train: init_lm's Threefry launches {counts}, "
              f"{len(draws.drawn)} recorded")
     losses, norms, secs = out["losses"], out["grad_norms"], out["step_s"]
+    p13_save_s = out["save_s"]
     if len(losses) != LM_TRAIN_STEPS or not np.isfinite(losses).all() \
             or not np.isfinite(norms).all():
         fail(f"{LM_ARCH} train: losses {losses}, grad norms {norms}")
@@ -1980,8 +2116,75 @@ def train_phase(*, card, zero_counts, read_counts) -> None:
         f"plain version bit for bit")
     p13 = {"losses": losses, "warm_s": warm, "tokens_s": tokens / warm,
            "peak": peak}
+
+    # -- 13.2 the full-depth checkpoint of step 8, restored -----------------
+    # The live state goes on for LM_TRAIN_FULL_MORE steps (the
+    # uninterrupted losses); a fresh state restored from the files runs the
+    # same steps.
+    state = out.pop("state")
     del out
+    if [x["step"] for x in saves] != [LM_TRAIN_STEPS]:
+        fail(f"{LM_ARCH} train: saves at steps {[x['step'] for x in saves]}, "
+             f"expected one at {LM_TRAIN_STEPS}")
+    # the largest tensor of the state: a float32 moment of the largest
+    # parameter (the embedding's, 50,304 x 2,560)
+    largest = max(p.numel() * 4 for p in state.params.parameters())
+    rise = saves[0]["rise"]
+    step_dir = os.path.join(full_ckpt, f"step_{LM_TRAIN_STEPS:08d}")
+    disk = sum(os.path.getsize(os.path.join(step_dir, f))
+               for f in os.listdir(step_dir))
+    tc_run = lm_train.train_config(LM_TRAIN_STEPS, LM_TRAIN_SEQ)
+    step = ts.make_train_step(cfg, tc_run)
+    batch_at = lm_train.make_batch_fn(cfg, dcfg, torch.device("cuda"))
+    more = range(LM_TRAIN_STEPS, LM_TRAIN_STEPS + LM_TRAIN_FULL_MORE)
+    want = []
+    for i in more:
+        state, m = step(state, batch_at(i))
+        want.append(float(m["loss"]))
+    del state, m
     torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        target = ts.init_train_state(0, cfg, tc_run, device="meta").tree()
+        tree, start = ck.restore(full_ckpt, target, device="cuda")
+        state = ts.TrainState.from_tree(tree, cfg, tc_run)
+        del tree
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(full_ckpt, ignore_errors=True)
+    got = []
+    for i in more:
+        state, m = step(state, batch_at(i))
+        got.append(float(m["loss"]))
+    del state, m
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if start != LM_TRAIN_STEPS or rel > LM_TRAIN_RESUME_RTOL:
+        fail(f"{LM_ARCH} full-depth restore: from step {start}, losses "
+             f"{got} against the live state's {want} ({rel:.2e} apart)")
+    if rise > 2 * largest:
+        fail(f"{LM_ARCH} full-depth save: max_memory_allocated rose "
+             f"{rise / 1e9:.3f} GB, above twice the largest tensor "
+             f"({2 * largest / 1e9:.3f} GB)")
+    say(f"[train] {LM_ARCH} full-depth checkpoint of step {LM_TRAIN_STEPS} "
+        f"(AsyncCheckpointer, a layer at a time to the host): "
+        f"{disk / 1e9:.2f} GB on disk ({free / 1e9:.0f} GB were free) | "
+        f"snapshot {saves[0]['snapshot_s']:.2f} s, save + write "
+        f"{p13_save_s:.2f} s | max_memory_allocated rose {rise / 1e6:.1f} MB "
+        f"during the save (limit twice the state's largest tensor, "
+        f"{2 * largest / 1e6:.1f} MB) | restored in {restore_s:.2f} s; "
+        f"steps {more.start}-{more.stop - 1} from it: losses "
+        f"{' '.join(f'{x:.6f}' for x in got)} against the live state's "
+        f"{' '.join(f'{x:.6f}' for x in want)} ({rel:.1e} apart, rtol "
+        f"{LM_TRAIN_RESUME_RTOL}) | {card}")
+    p13.update(save_gb=disk / 1e9, save_s=p13_save_s, restore_s=restore_s,
+               rise=rise)
+    note("13 train", f"{LM_ARCH} warm step {warm * 1e3:.1f} ms, "
+         f"{tokens / warm:.0f} tokens/s, peak {peak / 1e9:.2f} GB; "
+         f"full-depth save {disk / 1e9:.2f} GB in {p13_save_s:.2f} s (memory "
+         f"rise {rise / 1e6:.1f} MB), restore {restore_s:.2f} s, resumed "
+         f"losses within {rel:.1e}")
 
     # Where a warm step's time goes: the forward (with its checkpoints),
     # the backward (recomputing each layer and loss chunk) and the AdamW
@@ -2009,7 +2212,7 @@ def train_phase(*, card, zero_counts, read_counts) -> None:
     del state, loss, loss_fn
     torch.cuda.empty_cache()
 
-    # -- 13.2 a restart from an async checkpoint ---------------------------
+    # -- 13.3 a restart from an async checkpoint ---------------------------
     ckpt = os.path.join(ROOT, "build", "chip_smoke", "train_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     kw = dict(smoke=False, steps=LM_TRAIN_RESTART_STEPS,
@@ -2042,7 +2245,7 @@ def train_phase(*, card, zero_counts, read_counts) -> None:
         f"{' '.join(f'{x:.6f}' for x in want)} ({rel:.1e} apart, rtol "
         f"{LM_TRAIN_RESUME_RTOL}) | {card}")
 
-    # -- 13.3 every SMOKE architecture, float32, card against CPU ----------
+    # -- 13.4 every SMOKE architecture, float32, card against CPU ----------
     for arch in all_archs():
         scfg = dc.replace(get_config(arch, smoke=True), param_dtype="float32")
         stc = ts.TrainConfig(loss_chunk=8, q_chunk=8, kv_chunk=8)
@@ -2082,52 +2285,401 @@ def train_phase(*, card, zero_counts, read_counts) -> None:
     return p13
 
 
+def first_layers(model, cfg, n: int):
+    """The first ``n`` layers of ``model`` (an ``lm.LM``) as a tree of
+    copies in ``repro``'s layout, and the config of that depth: the
+    embedding and final norm as they are, each segment cut where the
+    ``n`` layers end."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch import tree as tm
+    from repro_torch.models import lm
+
+    cut = dc.replace(cfg, n_layers=n)
+    counts = [c for _, c in lm.segments(cut)]
+    pairs = []
+    for leaf in lm.stacked_leaves(model):
+        if leaf.stacked:
+            keep = counts[leaf.path[1]]
+            pairs.append((leaf.path, torch.stack(
+                [p.detach().clone() for p in leaf.params[:keep]])))
+        else:
+            pairs.append((leaf.path, leaf.params[0].detach().clone()))
+    return tm.nest(pairs), cut
+
+
+def family_phase(*, card, zero_counts, read_counts) -> dict:
+    """Phase 15: the SSD, hybrid and MLA + MoE families at their published
+    full width and depth, through ``launch.serve.serve`` with phase 12's
+    traffic and ``launch.train.train`` with phase 13's step."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_data
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import lm, moe
+    from repro_torch.train import train_step as ts
+
+    heads = {}
+    rng_prompts = np.random.default_rng(0)
+    for arch, trains in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        t_arch = time.perf_counter()
+        # -- serve: twice, the first recording init_lm's draws -------------
+        torch.backends.cuda.matmul.allow_tf32 = True
+        draws = InitDraws()
+        for run in ("cold", "warm"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            with draws if run == "cold" else contextlib.nullcontext():
+                out = lm_serve.serve(arch, smoke=False,
+                                     num_requests=LM_REQUESTS,
+                                     prompt_len=LM_PROMPT,
+                                     decode_steps=LM_STEPS)
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            toks = out["tokens"]
+            if toks.shape != (LM_REQUESTS, LM_STEPS + 1) or toks.min() < 0 \
+                    or toks.max() >= cfg.vocab:
+                fail(f"{arch}: served tokens {toks.shape} out of range")
+            if counts["threefry"] < 1:
+                fail(f"{arch}: init_lm drew no weights through the "
+                     f"Threefry kernel: {counts}")
+            if run == "warm" and not np.array_equal(toks, first):
+                fail(f"{arch}: two serves of one seed gave other tokens")
+            first = toks
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail(f"{arch}: serve() left TF32 on for CUDA matmuls")
+        if len(draws.drawn) != counts["threefry"]:
+            fail(f"{arch}: recorded {len(draws.drawn)} Threefry launches, "
+                 f"the wrapper counted {counts['threefry']}")
+        n = out["num_params"]
+        decode_ms = out["decode_s"] * 1e3 / LM_STEPS
+        tok_s = LM_REQUESTS * LM_STEPS / out["decode_s"]
+        say(f"[family] {arch} serve, full width and depth ({cfg.n_layers} "
+            f"layers, d {cfg.d_model}, {n / 1e9:.3f} B {cfg.param_dtype} "
+            f"parameters): {LM_REQUESTS} requests x {LM_PROMPT} prompt "
+            f"tokens, {LM_STEPS} greedy steps, warm | prefill "
+            f"{out['prefill_s'] * 1e3:.1f} ms | decode {decode_ms:.2f} ms a "
+            f"step, {tok_s:.0f} tok/s | max_memory_allocated "
+            f"{peak / 1e9:.2f} GB | tokens of the two serves equal | "
+            f"launches {json.dumps(counts)} | {card}")
+        say(f"[family] {arch} init_lm's {draws.hold(arch)}: kernel == "
+            f"plain version bit for bit")
+        head = {"prefill_ms": out["prefill_s"] * 1e3,
+                "decode_ms": decode_ms, "tok_s": tok_s,
+                "serve_peak_gb": peak / 1e9, "params_b": n / 1e9}
+        del out
+        torch.cuda.empty_cache()
+
+        # -- bf16 logits against a float32 copy of the weights ---------------
+        model = lm.init_lm(0, cfg, device="cuda")
+        depth = cfg.n_layers
+        if 6 * n > FAMILY_F32_FIT_BYTES:    # bf16 + float32 beside it
+            tree, cfg_cmp = first_layers(model, cfg, FAMILY_F32_LAYERS)
+            del model
+            torch.cuda.empty_cache()
+            model = lm.LM(cfg_cmp, tree)
+            depth = FAMILY_F32_LAYERS
+        else:
+            cfg_cmp = cfg
+        cfg32 = dc.replace(cfg_cmp, param_dtype="float32")
+        model32 = lm.LM(cfg32, lm.tree_map(lambda t: t.float(),
+                                           model.tree()))
+        prompts = torch.from_numpy(rng_prompts.integers(
+            0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)).cuda()
+        routes = []
+        real_top_k = moe.top_k
+
+        def recording_top_k(x, k):
+            vals, idx = real_top_k(x, k)
+            routes.append(torch.sort(idx, dim=-1).values)
+            return vals, idx
+        moe.top_k = recording_top_k
+        try:
+            with torch.inference_mode():
+                lb = lm.forward(model, prompts, cfg_cmp)[0].float()
+                lf = lm.forward(model32, prompts, cfg32)[0]
+        finally:
+            moe.top_k = real_top_k
+        rel = float((lb - lf).norm() / lf.norm())
+        top1 = float((lb.argmax(-1) == lf.argmax(-1)).float().mean())
+        flips = ""
+        if routes:
+            half = len(routes) // 2
+            moved = [float((a != b).any(-1).float().mean())
+                     for a, b in zip(routes[:half], routes[half:])]
+            flips = (f" | routing: tokens whose expert set differs, by MoE "
+                     f"layer {' '.join(f'{x:.4f}' for x in moved)}")
+            head["route_flips"] = max(moved)
+        lim_rel, lim_top1 = (
+            (LM_MOE_BF16_REL, LM_MOE_BF16_TOP1) if cfg.moe is not None else
+            (LM_SSM_BF16_REL, LM_SSM_BF16_TOP1) if cfg.family == "ssm" else
+            (LM_BF16_REL, LM_BF16_TOP1))
+        if not torch.isfinite(lb).all() or rel > lim_rel or top1 < lim_top1:
+            fail(f"{arch}: bf16 logits part from the float32 copy's: "
+                 f"relative {rel:.4f} (limit {lim_rel}), top-1 agreement "
+                 f"{top1:.4f} (limit {lim_top1}){flips}")
+        cut = "" if depth == cfg.n_layers else (
+            f" (its first {depth} layers at full width: the float32 copy of "
+            f"all {cfg.n_layers} does not fit beside the bf16 model)")
+        say(f"[family] {arch} bf16 against its float32 copy{cut}, forward "
+            f"over {LM_REQUESTS} x {LM_PROMPT} prompts: logits relative gap "
+            f"{rel:.4f} (limit {lim_rel}), top-1 agreement {top1:.4f} "
+            f"(limit {lim_top1}){flips} | {card}")
+        head.update(rel=rel, top1=top1)
+        del model, model32, lb, lf, routes
+        torch.cuda.empty_cache()
+
+        # -- train: phase 13's step, 8 steps --------------------------------
+        if not trains:
+            say(f"[family] {arch} training not run: its train state (bf16 "
+                f"weights, float32 AdamW moments and gradients, ~12 B a "
+                f"parameter: ~{12 * n / 1e9:.0f} GB) does not fit one "
+                f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.0f}"
+                f" GiB card | {card}")
+            heads[arch] = head
+            say(f"[family] {arch} {time.perf_counter() - t_arch:.1f} s")
+            continue
+        dcfg = lm_data.DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                                  global_batch=LM_TRAIN_BATCH)
+        batch0 = {k: torch.from_numpy(v).cuda()
+                  for k, v in lm_data.batch_at(dcfg, 0).items()}
+        tc = ts.TrainConfig(loss_chunk=LM_TRAIN_SEQ, q_chunk=LM_TRAIN_SEQ,
+                            kv_chunk=LM_TRAIN_SEQ)
+        model = lm.init_lm(0, cfg, device="cuda")
+        cfg32 = dc.replace(cfg, param_dtype="float32")
+        model32 = lm.LM(cfg32, lm.tree_map(lambda t: t.float(),
+                                           model.tree()))
+        with torch.no_grad():
+            loss_f32 = float(ts.make_loss_fn(cfg32, tc)(model32, batch0)[0])
+        del model, model32
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        draws = InitDraws()
+        with draws:
+            out = lm_train.train(arch, smoke=False, steps=LM_TRAIN_STEPS,
+                                 global_batch=LM_TRAIN_BATCH,
+                                 seq_len=LM_TRAIN_SEQ, log_every=100)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if counts["threefry"] < 1 or counts["threefry"] != len(draws.drawn):
+            fail(f"{arch} train: init_lm's Threefry launches {counts}, "
+                 f"{len(draws.drawn)} recorded")
+        losses, norms, secs = out["losses"], out["grad_norms"], out["step_s"]
+        if len(losses) != LM_TRAIN_STEPS or not np.isfinite(losses).all() \
+                or not np.isfinite(norms).all():
+            fail(f"{arch} train: losses {losses}, grad norms {norms}")
+        gap = abs(losses[0] - loss_f32) / abs(loss_f32)
+        if gap > LM_TRAIN_BF16_REL:
+            fail(f"{arch} train: first-step bf16 loss {losses[0]:.5f} is "
+                 f"{gap:.4f} from the float32 copy's {loss_f32:.5f} (limit "
+                 f"{LM_TRAIN_BF16_REL})")
+        warm = statistics.median(secs[1:])
+        tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        flops = 6 * n * tokens / warm
+        say(f"[family] {arch} train, full width and depth, {LM_TRAIN_BATCH} "
+            f"x {LM_TRAIN_SEQ} tokens a step, remat on: cold step "
+            f"{secs[0] * 1e3:.1f} ms, warm median {warm * 1e3:.1f} ms | "
+            f"{tokens / warm:.0f} tokens/s | 6 N tokens "
+            f"{flops / 1e12:.1f} TFLOP/s, "
+            f"{100 * flops / TENSOR_BF16_FLOP_PER_S:.1f} % of bf16 peak | "
+            f"max_memory_allocated {peak / 1e9:.2f} GB | losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)} | grad norms "
+            f"{' '.join(f'{x:.3f}' for x in norms)} | first-step loss "
+            f"{gap:.2e} from the float32 copy's {loss_f32:.5f} (limit "
+            f"{LM_TRAIN_BF16_REL}) | {card}")
+        say(f"[family] {arch} train()'s init_lm: {draws.hold(arch)}: "
+            f"kernel == plain version bit for bit")
+        head.update(step_ms=warm * 1e3, train_tok_s=tokens / warm,
+                    train_peak_gb=peak / 1e9, loss_gap=gap)
+        heads[arch] = head
+        del out
+        torch.cuda.empty_cache()
+        say(f"[family] {arch} {time.perf_counter() - t_arch:.1f} s")
+    return heads
+
+
 class DryRuns:
-    """Phase 14.4's dry runs as CPU child processes, started when the
-    script starts (they need no card and overlap the card's phases) and
-    stopped at exit whatever happens."""
+    """Phase 14.4's CPU children, started when the script starts (they
+    need no card and overlap the card's phases) and stopped at exit
+    whatever happens: the full-depth dry run and ``dryrun_hdc`` at once,
+    and on a thread, one after another, the ``DRYRUN_ARCHS`` dry runs at
+    ``DRYRUN_LAYERS`` layers and the four ranks of the SSD prefill under
+    ``DECODE_RULES`` (``--prefill-worker``)."""
 
     def __init__(self):
         self.out = os.path.join(ROOT, "build", "chip_smoke", "dryrun_torch")
         self.procs = {}
+        self.chain_out = {}
         self.t0 = time.perf_counter()
+        self.env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+                    "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
 
     def start(self) -> None:
         import atexit
         import shutil
+        import threading
 
         shutil.rmtree(self.out, ignore_errors=True)
         os.makedirs(self.out)
-        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
-               "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
         cmds = {"dryrun": ["-m", "repro_torch.launch.dryrun", "--arch",
                            LM_ARCH, "--shape", "train_4k"],
                 "dryrun_hdc": ["-m", "repro_torch.launch.dryrun_hdc",
                                "--both-meshes"]}
         for name, cmd in cmds.items():
             self.procs[name] = subprocess.Popen(
-                [sys.executable, *cmd, "--out", self.out], cwd=ROOT, env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                [sys.executable, *cmd, "--out", self.out], cwd=ROOT,
+                env=self.env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
         atexit.register(self.stop)
+        self.chain = threading.Thread(target=self._chain, daemon=True)
+        self.chain.start()
+
+    def _run(self, name: str, procs: list) -> None:
+        self.procs[name] = procs
+        logs = [p.communicate()[0] for p in procs]
+        self.chain_out[name] = ([p.returncode for p in procs], logs)
+
+    def _chain(self) -> None:
+        try:
+            for arch in DRYRUN_ARCHS:
+                self._run(f"dryrun {arch}", [subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", "train_4k", "--layers",
+                     str(DRYRUN_LAYERS), "--out",
+                     os.path.join(self.out, "layers")], cwd=ROOT,
+                    env=self.env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)])
+            path = os.path.join(self.out, "prefill.json")
+            self._run("prefill", _start_ranks(
+                ["--prefill-worker", path], 4,
+                {"OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}))
+        except Exception as e:              # reported by finish()
+            self.chain_out["chain"] = ([1], [f"{type(e).__name__}: {e}"])
 
     def stop(self) -> None:
         for p in self.procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+            for q in p if isinstance(p, list) else [p]:
+                if q.poll() is None:
+                    q.kill()
+                    q.wait()
 
     def finish(self, timeout: float) -> dict:
         """Each child's output once it exits 0 (a failure fails)."""
         logs = {}
-        for name, p in self.procs.items():
+        t_end = time.perf_counter() + timeout
+        for name, p in list(self.procs.items()):
+            if isinstance(p, list):
+                continue
             try:
-                logs[name] = p.communicate(timeout=timeout)[0]
+                logs[name] = p.communicate(
+                    timeout=max(t_end - time.perf_counter(), 1))[0]
             except subprocess.TimeoutExpired:
                 self.stop()
                 fail(f"{name} did not finish in {timeout:.0f} s more")
             if p.returncode != 0:
                 fail(f"{name} exited {p.returncode}:\n{logs[name][-3000:]}")
+        self.chain.join(max(t_end - time.perf_counter(), 1))
+        if self.chain.is_alive():
+            self.stop()
+            fail(f"14.4's chained children did not finish in {timeout:.0f} "
+                 f"s more (done: {', '.join(self.chain_out) or 'none'})")
+        for name, (codes, out) in self.chain_out.items():
+            if any(codes):
+                fail(f"{name} exited {codes}:\n{out[0][-3000:]}")
+            logs[name] = out[0]
         return logs
+
+
+def prefill_worker(out_path: str) -> int:
+    """One of 14.4's four gloo CPU ranks: each smoke architecture of
+    ``PREFILL_ARCHS`` (float32, SSD heads) prefilled on a 2 x 2
+    ``("data", "model")`` mesh under ``DECODE_RULES`` and on one device
+    (this process), logits and every decode cache leaf compared; rank 0
+    writes ``{arch: {"gap": .., "scale": ..}}`` or ``{arch: {"error":
+    ..}}`` (the first failing op's message and the port's frames)."""
+    import dataclasses as dc
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import tree as tm
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import param_specs as ps, sharding
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import full
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo")
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    rules = sharding.DECODE_RULES
+    out = {}
+    for arch in PREFILL_ARCHS:
+        cfg = dc.replace(get_config(arch, smoke=True), param_dtype="float32")
+        tok = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (4, 12)).astype(np.int64))
+        with torch.no_grad():
+            want_logits, want_caches, _ = lm.prefill(
+                lm.init_lm(0, cfg, device="cpu"), tok, cfg, 32, q_chunk=8,
+                kv_chunk=8)
+        try:
+            model = ps.distribute_lm(lm.init_lm(0, cfg, device="cpu"), mesh,
+                                     rules)
+            with torch.no_grad(), sharding.use_rules(mesh, rules):
+                got_logits, got_caches, _ = lm.prefill(
+                    model, ps.distribute(tok, mesh, ps.resolve_leaf(
+                        tuple(tok.shape), ("batch", None), mesh, rules)),
+                    cfg, 32, q_chunk=8, kv_chunk=8)
+            pairs = [("logits", full(got_logits), want_logits)] + [
+                ("/".join(map(str, p)), full(g), w) for (p, g), (_, w) in
+                zip(tm.flatten(got_caches), tm.flatten(want_caches))]
+            worst = {}
+            for name, g, w in pairs:
+                if g.shape != w.shape:
+                    raise ValueError(f"{name}: shape {tuple(g.shape)} != "
+                                     f"{tuple(w.shape)}")
+                scale = float(w.abs().max()) if w.numel() else 0.0
+                gap = float((g.float() - w.float()).abs().max()) \
+                    if w.numel() else 0.0
+                if not worst or gap / max(scale, 1e-30) > \
+                        worst["gap"] / max(worst["scale"], 1e-30):
+                    worst = {"leaf": name, "gap": gap, "scale": scale}
+            out[arch] = dict(worst, leaves=len(pairs))
+        except Exception as e:              # recorded, failed by the parent
+            frames = [f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                      for f in traceback.extract_tb(e.__traceback__)
+                      if "repro_torch" in f.filename]
+            out[arch] = {"error": f"{type(e).__name__}: {str(e)[:400]}",
+                         "frames": frames[-4:]}
+    if dist.get_rank() == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _start_ranks(args: list[str], world: int, env: dict) -> list:
+    """``world`` ranks of ``chip_smoke.py *args`` (the group from the
+    environment, as torchrun makes it)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": str(world), **env}
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args], cwd=ROOT,
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
 
 
 def _start_pair(task: str, paths: list[str]) -> list:
@@ -2354,6 +2906,7 @@ def mesh_phase(*, card, zero_counts, read_counts, p13, dry) -> None:
         f"losses equal phase 13's within {rel:.1e} (rtol "
         f"{MESH_EQUAL_RTOL:.0e}) | train() {wall:.1f} s with init | "
         f"launches {json.dumps(counts)} | {card}")
+    note("14 mesh", f"14.1 warm {warm * 1e3:.1f} ms (x{warm / p13['warm_s']:.2f}), losses equal phase 13's")
     del out
     torch.cuda.empty_cache()
 
@@ -2435,6 +2988,14 @@ def mesh_phase(*, card, zero_counts, read_counts, p13, dry) -> None:
             f"{time.perf_counter() - t0:.1f} s with start-up | {card}")
 
     # -- 14.4 the dry runs (CPU children, counts of a fake group) -------------
+    dry_phase(dry)
+
+
+def dry_phase(dry) -> None:
+    """Phase 14.4: the CPU children's results (counts of a fake group;
+    parity of the decode-rules prefill)."""
+    import torch
+
     t0 = time.perf_counter()
     logs = dry.finish(timeout=600)
     waited = time.perf_counter() - t0
@@ -2463,6 +3024,35 @@ def mesh_phase(*, card, zero_counts, read_counts, p13, dry) -> None:
         fail(f"dryrun_hdc: {logs['dryrun_hdc'][-2000:]}")
     for ln in hdc:
         say(f"[mesh] 14.4 {ln}")
+    # on this machine's own torch: the full configurations that pad heads
+    # and mamba2's, at DRYRUN_LAYERS layers, and the SSD prefill under
+    # DECODE_RULES on a 2 x 2 gloo CPU mesh
+    parts = []
+    for arch in DRYRUN_ARCHS:
+        c = json.load(open(os.path.join(
+            dry.out, "layers", f"{arch}.train_4k.16x16.json")))
+        if not c["ok"]:
+            fail(f"dry run {arch} train_4k at {DRYRUN_LAYERS} layers: "
+                 f"{c['error'][:2000]}")
+        parts.append(f"{arch} OK ({c['seconds']:.1f} s, FLOPs "
+                     f"{c['cost']['flops']:.3e}, arguments "
+                     f"{c['memory']['argument_size_in_bytes'] / 1e9:.3f} GB)")
+    pre = json.load(open(os.path.join(dry.out, "prefill.json")))
+    for arch in PREFILL_ARCHS:
+        r = pre[arch]
+        if "error" in r or r["gap"] > PREFILL_RTOL * r["scale"]:
+            fail(f"SSD prefill of {arch} under DECODE_RULES on 2 x 2 against "
+                 f"one device: {r}")
+    say(f"[mesh] 14.4 torch {torch.__version__}: train_4k on a fake 16 x 16 "
+        f"group at full width, {DRYRUN_LAYERS} layers: " + "; ".join(parts)
+        + " | SSD prefill under DECODE_RULES, 2 x 2 gloo CPU mesh (4 ranks) "
+        "against one device, float32: " + "; ".join(
+            f"{a} worst {pre[a]['leaf']} {pre[a]['gap']:.1e} at a scale of "
+            f"{pre[a]['scale']:.2e} ({pre[a]['leaves']} leaves)"
+            for a in PREFILL_ARCHS) + f" (rtol {PREFILL_RTOL:.0e})")
+    note("14 mesh", f"14.4 on torch {torch.__version__}: {len(parts)} "
+         f"{DRYRUN_LAYERS}-layer dry runs OK, SSD decode-rules prefill "
+         f"within {max(pre[a]['gap'] / pre[a]['scale'] for a in PREFILL_ARCHS):.1e}")
 
 
 def shard_worker(out_path: str) -> int:
@@ -2525,6 +3115,9 @@ def shard_worker(out_path: str) -> int:
     return 0
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     sweep = "--sweep" in sys.argv[1:]
     import torch
@@ -2580,6 +3173,7 @@ def main() -> int:
     _build.build_all()
     say(f"[setup] built {', '.join(_build.SOURCES)} with nvcc in "
         f"{time.perf_counter() - t0:.1f} s")
+    note("1 setup", f"kernels built in {time.perf_counter() - t0:.1f} s; {card}")
 
     space = HDSpace()                          # D = 40,960, n = 16
     n, w, alphabet = space.ngram, space.num_words, space.alphabet_size
@@ -2669,6 +3263,7 @@ def main() -> int:
             f"{'/'.join(map(str, live))}, 56 rows of length 0): hdc_encoder "
             f"== plain, fused_profile == plain at the {len(fit)} tilings "
             f"that fit ({' '.join(f'{a}/{c}' for a, c in fit)}) (bit-exact)")
+        note("2 parity", f"cohort L = {width} bit-exact")
 
     # The search kernels: the encoded windows plus random rows against the
     # same 1,001 prototypes, then a ragged W = 1,001 (a word tail in the
@@ -2722,6 +3317,7 @@ def main() -> int:
     main_report = report.to_dict()
     med, secs = warm_profile(session, sample, db, main_report)
     say(f"[main] cuda_fused profile {warm_line(med, secs)} | {card}")
+    note("3 main", f"cuda_fused profile warm median {med:.3f} s ({NUM_READS / med:.0f} reads/s)")
 
     # Kernel times and parity at the shapes the main path gave them:
     # a full 256-window build batch and a 256-read query batch.
@@ -2853,6 +3449,7 @@ def main() -> int:
             fail(f"{backend} report differs from cuda_fused's")
         med, secs = warm_profile(sess, sample, db, main_report)
         say(f"[search] {backend} profile {warm_line(med, secs)} | {card}")
+        note("3 search", f"{backend} warm median {med:.3f} s")
     say("[search] cuda_packed and cuda_matmul reports == cuda_fused's "
         f"({NUM_READS} reads, {db.num_prototypes} prototypes)")
 
@@ -2979,6 +3576,7 @@ def main() -> int:
         f"the card: {dbs['reference'].num_prototypes} prototypes, "
         f"{r['total_reads']} reads, unmapped {r['unmapped_reads']}, multi "
         f"{r['multi_reads']}")
+    note("4 report", "cuda_fused == cuda_packed == cuda_matmul == reference")
 
     # -- 5. the profile_run CLI on the card ------------------------------
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
@@ -2989,6 +3587,7 @@ def main() -> int:
         fail("profile_run reports differ between cuda_packed and cuda_matmul")
     say("[cli] profile_run --synthetic: cuda_packed and cuda_matmul "
         "report JSONs are equal")
+    note("5 cli", "profile_run reports equal")
 
     # -- 6. the serving path at full width --------------------------------
     t0 = time.perf_counter()
@@ -3048,8 +3647,22 @@ def main() -> int:
                p13=p13, dry=dry)
     say(f"[mesh] mesh phase {time.perf_counter() - t0:.1f} s | {card}")
 
+    # -- 15. the SSD, hybrid and MLA + MoE families at full width -------------
+    t0 = time.perf_counter()
+    heads = family_phase(card=card, zero_counts=zero_counts,
+                         read_counts=read_counts)
+    for arch, h in heads.items():
+        note("15 family", f"{arch} prefill {h['prefill_ms']:.1f} ms, decode "
+             f"{h['tok_s']:.0f} tok/s, bf16 gap {h['rel']:.4f}"
+             + (f", train step {h['step_ms']:.1f} ms, "
+                f"{h['train_peak_gb']:.2f} GB" if "step_ms" in h else ""))
+    say(f"[family] families phase {time.perf_counter() - t0:.1f} s | {card}")
+    note("total", f"{time.perf_counter() - T_START:.1f} s")
+
     say(card)
     say(json.dumps({"kernels": rows}))
+    for phase, text in SUMMARY.items():
+        say(f"[summary] {phase}: {text}")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3061,4 +3674,6 @@ if __name__ == "__main__":
         sys.exit(shard_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--prefill-worker"]:
+        sys.exit(prefill_worker(sys.argv[2]))
     sys.exit(main())

@@ -22,6 +22,13 @@ Writes go to ``step_%08d.tmp`` and are renamed when complete: a crashed
 save is never taken for the latest step.  The async saver snapshots to
 host memory on the call and writes on a worker thread.
 
+A tree may hold a segment's leaf as :class:`Layers`, its per-layer
+tensors (:meth:`repro_torch.train.train_step.TrainState.checkpoint_tree`):
+the leaf is then stacked on the host, one layer copied at a time, so a
+save makes no second copy of the state on the device.  The files are
+those of the stacked tensor's save.  :func:`save` takes and writes one
+leaf at a time.
+
 A state on a mesh (DTensor leaves) is saved as the same full arrays:
 every rank takes part in gathering each leaf (``full_tensor()``, one at
 a time) and rank 0 writes.  ``restore(..., mesh=, shardings=)`` reads
@@ -51,8 +58,28 @@ def _key(path: tuple) -> str:
     return _SEP.join(str(k) for k in path)
 
 
+class Layers(tuple):
+    """One stacked leaf as its per-layer tensors (a leaf of the tree, not a
+    tuple of leaves: :mod:`repro_torch.tree` keeps subclasses whole)."""
+
+
+def _is_bf16(leaf) -> bool:
+    if isinstance(leaf, Layers):
+        return bool(leaf) and leaf[0].dtype == torch.bfloat16
+    return isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+
+
 def _to_numpy(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` (a tensor, an array or a number)."""
+    """A host copy of ``leaf`` (a tensor, :class:`Layers`, an array or a
+    number)."""
+    if isinstance(leaf, Layers):
+        out = None
+        for i, t in enumerate(leaf):       # a layer on the host at a time
+            arr = _to_numpy(t)
+            if out is None:
+                out = np.empty((len(leaf),) + arr.shape, arr.dtype)
+            out[i] = arr
+        return out
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
     t = leaf.detach()
@@ -72,8 +99,9 @@ def _to_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _write(root: pathlib.Path, flat: list[tuple[str, np.ndarray, str]],
-           step: int) -> pathlib.Path:
+def _write(root: pathlib.Path, flat, step: int) -> pathlib.Path:
+    """Write ``(key, array, dtype)`` entries (a list, or an iterator that
+    makes each as it is asked for) and publish the step."""
     final = root / f"step_{step:08d}"
     tmp = root / f"step_{step:08d}.tmp"
     if tmp.exists():
@@ -85,6 +113,7 @@ def _write(root: pathlib.Path, flat: list[tuple[str, np.ndarray, str]],
         np.save(tmp / fname, arr)
         manifest.append({"key": key, "file": fname,
                          "shape": list(arr.shape), "dtype": dtype})
+        del arr                     # before the next entry is made
     (tmp / "meta.json").write_text(json.dumps(
         {"step": step, "manifest": manifest}))
     if final.exists():
@@ -103,25 +132,28 @@ def _barrier() -> None:
         dist.barrier()
 
 
-def _snapshot(state) -> list[tuple[str, np.ndarray, str]]:
-    out = []
+def _snapshot(state):
+    """``(key, host array, dtype)`` of each leaf, in ``tree`` order, made
+    as it is asked for (on a mesh: a collective, on every rank)."""
     for path, leaf in tree_mod.flatten(state):
         arr = _to_numpy(leaf)
-        bf16 = (isinstance(leaf, torch.Tensor)
-                and leaf.dtype == torch.bfloat16)
-        out.append((_key(path), arr, "bfloat16" if bf16 else str(arr.dtype)))
-    return out
+        yield (_key(path), arr,
+               "bfloat16" if _is_bf16(leaf) else str(arr.dtype))
+        del arr
 
 
 def save(path: str | pathlib.Path, state, step: int) -> pathlib.Path:
     """Synchronous save of a tree (nested dicts / tuples of tensors,
-    arrays or numbers) with atomic publish.  Returns the final dir.  On
-    a process group every rank calls it; rank 0 writes, and every rank
-    returns once the step is published."""
-    snapshot = _snapshot(state)
+    :class:`Layers`, arrays or numbers) with atomic publish, one leaf at a
+    time on the host.  Returns the final dir.  On a process group every
+    rank calls it (each leaf is gathered collectively); rank 0 writes,
+    and every rank returns once the step is published."""
     root = pathlib.Path(path)
     if _writer():
-        _write(root, snapshot, step)
+        _write(root, _snapshot(state), step)
+    else:
+        for _ in _snapshot(state):
+            pass
     _barrier()
     return root / f"step_{step:08d}"
 
@@ -186,12 +218,15 @@ class AsyncCheckpointer:
         self.error: Exception | None = None
 
     def save(self, state, step: int) -> None:
-        """Snapshot now (on a process group: every rank, collectively)
-        and write on a thread (rank 0)."""
+        """Snapshot now to host memory (on a process group: every rank,
+        collectively; :class:`Layers` a layer at a time) and write on a
+        thread (rank 0)."""
         self.wait()
-        snapshot = _snapshot(state)
         if not _writer():
+            for _ in _snapshot(state):      # take part in each gather
+                pass
             return
+        snapshot = list(_snapshot(state))
 
         def work():
             try:

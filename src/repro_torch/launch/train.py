@@ -111,32 +111,45 @@ def place_batch(batch: dict, mesh) -> dict:
             for k, v in batch.items()}
 
 
+def train_config(steps: int, seq_len: int, peak_lr: float = 3e-3
+                 ) -> ts.TrainConfig:
+    """The :class:`~repro_torch.train.train_step.TrainConfig` of a run of
+    ``steps`` steps on ``seq_len`` tokens (``repro``'s)."""
+    return ts.TrainConfig(
+        opt=OptConfig(peak_lr=peak_lr, warmup_steps=max(steps // 20, 5),
+                      total_steps=steps),
+        loss_chunk=min(512, seq_len),
+        q_chunk=min(512, seq_len), kv_chunk=min(512, seq_len))
+
+
 def train(arch: str, *, steps: int, global_batch: int, seq_len: int,
           smoke: bool = True, mesh_kind: str = "host",
           ckpt_dir: str | None = None, ckpt_every: int = 50,
           peak_lr: float = 3e-3, log_every: int = 10,
           device: str | torch.device | None = None,
           n_layers: int | None = None,
-          host_shape: tuple[int, int] | None = None) -> dict:
+          host_shape: tuple[int, int] | None = None,
+          return_state: bool = False) -> dict:
     """Train ``arch`` for ``steps`` steps (from the newest checkpoint in
     ``ckpt_dir`` when there is one).  Returns ``final_loss`` and, for the
     steps this call ran, ``losses``, ``grad_norms`` and ``step_s`` (wall
     seconds a step, after a device sync), with ``resumed_from`` (the first
     step run), ``restore_s`` (reading the checkpoint into a state),
     ``save_s`` (seconds the loop spent in checkpoint calls: the
-    snapshots, and the last write's wait), ``num_params`` and ``mesh``
-    (its shape, or None)."""
+    snapshots, and the last write's wait), ``num_params``, ``mesh``
+    (its shape, or None) and, with ``return_state``, ``state`` (the
+    :class:`~repro_torch.train.train_step.TrainState` after the last
+    step).  Checkpoints are taken a layer at a time to the host
+    (:meth:`~repro_torch.train.train_step.TrainState.checkpoint_tree`);
+    the closing save is left out where the loop has just saved that
+    step."""
     dev = resolve_device(device)
     mesh = make_mesh(mesh_kind, dev, host_shape)
     rules = sharding.TRAIN_RULES
     cfg = get_config(arch, smoke=smoke)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    tc = ts.TrainConfig(
-        opt=OptConfig(peak_lr=peak_lr, warmup_steps=max(steps // 20, 5),
-                      total_steps=steps),
-        loss_chunk=min(512, seq_len),
-        q_chunk=min(512, seq_len), kv_chunk=min(512, seq_len))
+    tc = train_config(steps, seq_len, peak_lr)
     dc = lm_data.DataConfig(vocab=cfg.vocab, seq_len=seq_len,
                             global_batch=global_batch)
     batch_at = make_batch_fn(cfg, dc, dev)
@@ -187,18 +200,22 @@ def train(arch: str, *, steps: int, global_batch: int, seq_len: int,
                   flush=True)
         if acp and (i + 1) % ckpt_every == 0:
             t0 = time.perf_counter()
-            acp.save(state.tree(), i + 1)
+            acp.save(state.checkpoint_tree(), i + 1)
             save_s += time.perf_counter() - t0
     if acp:
         t0 = time.perf_counter()
-        acp.save(state.tree(), steps)
+        if steps > start and steps % ckpt_every:    # not saved just now
+            acp.save(state.checkpoint_tree(), steps)
         acp.wait()
         save_s += time.perf_counter() - t0
-    return {"final_loss": losses[-1] if losses else None, "losses": losses,
-            "grad_norms": norms, "step_s": secs, "resumed_from": start,
-            "restore_s": restore_s, "save_s": save_s,
-            "num_params": sum(p.numel() for p in state.params.parameters()),
-            "mesh": tuple(mesh.shape) if mesh is not None else None}
+    out = {"final_loss": losses[-1] if losses else None, "losses": losses,
+           "grad_norms": norms, "step_s": secs, "resumed_from": start,
+           "restore_s": restore_s, "save_s": save_s,
+           "num_params": sum(p.numel() for p in state.params.parameters()),
+           "mesh": tuple(mesh.shape) if mesh is not None else None}
+    if return_state:
+        out["state"] = state
+    return out
 
 
 def main(argv: list[str] | None = None) -> None:

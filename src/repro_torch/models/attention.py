@@ -122,13 +122,43 @@ def head_padding_plan(h: int, kv: int, tp: int, *,
     return hp, kvp, slots
 
 
+def _slot_matrix(plan: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """The plan's ``(h, hp)`` 0/1 matrix: row i has its one 1 at
+    ``slots[i]``."""
+    hp, _, slots = plan
+    return torch.from_numpy(np.eye(hp, dtype=np.float32)[slots]).to(
+        device=device, dtype=dtype)
+
+
+def _whole_heads(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (``(..., heads, d)``) with its heads whole on every rank: a
+    DTensor split along them is gathered (GSPMD's layout for the gather
+    of the index form), so the product contracts no split axis, whose
+    partial sum some versions plan wrongly."""
+    if not isinstance(t, DTensor):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    dim = t.ndim - 2
+    return t.redistribute(t.device_mesh, [
+        Replicate() if isinstance(pl, Shard) and pl.dim == dim else pl
+        for pl in t.placements])
+
+
 def pad_heads(q: torch.Tensor, k: torch.Tensor | None,
               v: torch.Tensor | None, plan: tuple):
-    """Scatter real heads into the padded layout (zeros elsewhere)."""
-    hp, kvp, slots = plan
-    idx = torch.as_tensor(slots, device=q.device)
-    qp = q.new_zeros(q.shape[:-2] + (hp, q.shape[-1]))
-    qp[..., idx, :] = q
+    """Scatter real heads into the padded layout (zeros elsewhere).
+
+    The scatter is a product with the plan's 0/1 slot matrix, for which
+    DTensor has rules in every version (it has none for the indexed
+    write on some).  Each output is one input times 1 plus zeros (plus
+    +0.0, so a padding slot is +0.0 whatever the zeros' signs), so the
+    result equals the indexed write's bit for bit, but where the input
+    holds inf or NaN (times 0: NaN in every slot) and where a real head
+    holds -0.0 (it may come out +0.0); on the card, with TF32 off (a
+    model made on the card turns it off)."""
+    _, kvp, _ = plan
+    qp = torch.einsum("...hd,hp->...pd", q,
+                      _slot_matrix(plan, q.dtype, q.device)) + 0.0
 
     def padkv(t):
         if t is None or t.shape[-2] == kvp:
@@ -138,7 +168,10 @@ def pad_heads(q: torch.Tensor, k: torch.Tensor | None,
 
 
 def unpad_heads(out: torch.Tensor, plan: tuple) -> torch.Tensor:
-    return out[..., torch.as_tensor(plan[2], device=out.device), :]
+    """The real heads of the padded layout: the product with the slot
+    matrix's transpose (exact as :func:`pad_heads` is)."""
+    return torch.einsum("...pd,hp->...hd", _whole_heads(out),
+                        _slot_matrix(plan, out.dtype, out.device))
 
 
 # -- chunked online-softmax attention ------------------------------------------

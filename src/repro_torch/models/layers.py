@@ -129,8 +129,19 @@ class Keys:
         return v.reshape((self.n,) + tuple(shape))
 
     def scaled(self, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
-        """``(jax.random.normal(key, shape) * std).astype(dtype)``."""
-        return self.normal(shape).mul_(std).to(dtype)
+        """``(jax.random.normal(key, shape) * std).astype(dtype)``.  A
+        batch of keys (a stacked leaf) narrower than float32 is drawn a key
+        at a time into the result, so its float32 draws never live whole
+        (a word depends only on its key and index: the same values)."""
+        if self.n <= 1 or dtype == torch.float32 or \
+                self.device.type == "meta":
+            return self.normal(shape).mul_(std).to(dtype)
+        out = torch.empty((self.n,) + tuple(shape), dtype=dtype,
+                          device=self.device)
+        for i in range(self.n):
+            one = dataclasses.replace(self, words=self.words[i:i + 1])
+            out[i] = one.normal(shape)[0].mul_(std)
+        return out
 
     def full(self, shape, value: float, dtype=torch.float32) -> torch.Tensor:
         return torch.full((self.n,) + tuple(shape), value, dtype=dtype,
@@ -138,17 +149,17 @@ class Keys:
 
 
 def pad_zeros(x: torch.Tensor, dim: int, before: int = 0,
-              after: int = 0) -> torch.Tensor:
-    """``x`` with ``before`` / ``after`` zeros along ``dim``
+              after: int = 0, value: float = 0) -> torch.Tensor:
+    """``x`` with ``before`` / ``after`` zeros (or ``value``) along ``dim``
     (``F.pad``'s), as a concatenation, which DTensor runs in every
-    version (on a mesh the zeros join as replicated)."""
+    version (on a mesh the padding joins as replicated)."""
     if not before and not after:
         return x
     dim %= x.ndim
 
     def zeros(n):
-        return torch.zeros(x.shape[:dim] + (n,) + x.shape[dim + 1:],
-                           dtype=x.dtype, device=x.device)
+        return torch.full(x.shape[:dim] + (n,) + x.shape[dim + 1:], value,
+                          dtype=x.dtype, device=x.device)
     parts = ([zeros(before)] if before else []) + [x] + (
         [zeros(after)] if after else [])
     return torch.cat(parts, dim=dim)
@@ -284,7 +295,12 @@ def _vocab_parallel_lookup(table, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return (h @ p["tok_embed"].T.to(h.dtype)).to(torch.float32)
+        # On a mesh the tied table's two gradients (this product's and
+        # the lookup's) must meet in one layout before they add: both in
+        # the table's own (some versions cannot turn a split one into the
+        # product's partial sum)
+        table = sharding.pin_grad(p["tok_embed"])
+        return (h @ table.T.to(h.dtype)).to(torch.float32)
     return (h @ p["lm_head"]).to(torch.float32)
 
 

@@ -227,7 +227,9 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, s: SSMConfig
     y = by_heads(_ssd, xs, ((xs, 2), (dt, 2), (bmat, 2), (cmat, 2), (a, 0)),
                  out_dim=2, chunk=s.chunk)
     y = y + xs * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, l, d_in)
+    # on a mesh the gradient comes back in the merged axis's layout, whole
+    # heads (the merge's backward splits it again)
+    y = sharding.pin_grad(y.reshape(bsz, l, d_in))
 
     y = layers.apply_norm(p["gate_norm"], y * F.silu(z), "rmsnorm")
     return y.to(x.dtype) @ p["out_proj"]

@@ -64,6 +64,30 @@ class TrainState:
                 "step": torch.tensor(self.step, dtype=torch.int32,
                                      device=dev)}
 
+    def checkpoint_tree(self) -> dict:
+        """:meth:`tree`'s structure with each segment leaf as its per-layer
+        tensors (:class:`~repro_torch.checkpoint.checkpointer.Layers`), which
+        the checkpointer stacks on the host a layer at a time: a save of
+        this tree writes :meth:`tree`'s files and makes no stacked copy on
+        the device."""
+        from repro_torch.checkpoint.checkpointer import Layers
+
+        def leaf_of(leaf, fn, dtype=None):
+            if leaf.stacked and leaf.empty is None:
+                return Layers(fn(p) for p in leaf.params)
+            return leaf.gather(fn, dtype)
+        moments = {name: tree_mod.nest(
+            (leaf.path, leaf_of(leaf, lambda p, n=name: self.opt.state[p][n],
+                                torch.float32))
+            for leaf in self.opt.leaves) for name in ("m", "v")}
+        dev = next(self.params.parameters()).device
+        return {"params": tree_mod.nest(
+                    (leaf.path, leaf_of(leaf, lambda p: p.data))
+                    for leaf in lm.stacked_leaves(self.params)),
+                "opt": moments,
+                "step": torch.tensor(self.step, dtype=torch.int32,
+                                     device=dev)}
+
     def grad_tree(self) -> dict:
         """The parameters' ``.grad`` in ``repro``'s layout (segment leaves
         stacked; zeros where a parameter took no gradient): ``repro``'s
@@ -133,8 +157,9 @@ def chunked_ce_loss(h: torch.Tensor, embed, labels: torch.Tensor,
     chunk = min(chunk, s)
     pad = (-s) % chunk
     if pad:
-        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        # concatenations, which DTensor runs in every version
+        h = layers.pad_zeros(h, 1, after=pad)
+        labels = layers.pad_zeros(labels, 1, after=pad, value=-1)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     n = torch.zeros((), dtype=torch.int64, device=h.device)
     for c0 in range(0, h.shape[1], chunk):
