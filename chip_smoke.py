@@ -13,7 +13,10 @@ no result line):
 
 1. setup     the card's name and power limit; builds the CUDA kernels from
              ``src/repro_torch/csrc`` with nvcc (one process per source,
-             all at once) and prints the build time.
+             all at once) and prints the build time, and the tensor-core
+             instructions of the built ``am_matmul`` library
+             (``cuobjdump -sass``: IGMMA / HGMMA are wgmma, IMMA / HMMA
+             mma.sync; it must hold wgmma of both kinds and no mma.sync).
 2. parity    each kernel against its plain torch version on the card, bit
              for bit, at the full width D = 40,960, n = 16: the encoder on
              256 windows of 8,192 tokens (one short, one with an even gram
@@ -25,7 +28,8 @@ no result line):
              tiling, at bb 32 / cluster 2 and at bb 16 / cluster 8; the
              search kernels (``hamming_am``, ``am_matmul_packed``, the bf16
              ``am_matmul``) on 253 queries against the same 1,001
-             prototypes, and at a ragged W = 1,001, each with a query equal
+             prototypes, and at a ragged W = 1,001 (the packed entry's
+             stages come by cp.async, not TMA), each with a query equal
              to a prototype and one equal to a complement, all equal to
              each other; and at dim != 32 W against their plain versions.
              Then the serving path's cohorts: 256 reads padded to 256 and
@@ -53,7 +57,11 @@ no result line):
              timed at the main path's shapes beside ``to_pm1`` and the
              library calls on the pre-expanded +-1 operands (float32 and
              bf16 ``torch.mm``, ``torch._int_mm`` on int8 with S padded
-             to a multiple of 8).
+             to a multiple of 8), with each search kernel's tiling (for
+             ``am_matmul``'s two entries: M x N a block, ring stages,
+             blocks against SMs, shared memory a block, the bytes a
+             launch reads, and the packed entry's integer against tensor
+             clocks a k32 column).
 4. report    a 4 species x 200 kbp community, 2,048 reads: the cuda_fused,
              cuda_packed and cuda_matmul reports and prototypes equal the
              torch ``reference`` backend's on the card.
@@ -240,6 +248,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -278,7 +287,8 @@ ENCODE_OPS_PER_WORD_GRAM = 3
 #: NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table), printed in the
 #: [time] lines beside this run's.
 PRIOR_MS = {"hdc_encoder": 1.201, "fused_profile": 0.240,
-           "hamming_am": 0.934, "am_matmul": 1.060}
+           "hamming_am": 0.934, "am_matmul_packed": 0.348,
+           "am_matmul": 1.074}
 
 #: Integer operations of one Threefry-2x32 pair: 20 rounds of add, rotate
 #: (one funnel shift) and xor, and the six key injections (two adds each,
@@ -546,6 +556,31 @@ def ulp_gap(got, want, chunk: int = 1 << 26) -> tuple[int, int, float]:
         n_diff += int((ulp > 0).sum())
         err = max(err, float((a - b).abs().max()))
     return top, n_diff, err
+
+
+def sass_line(lib: str) -> str:
+    """The tensor-core instructions in a built library's SASS: wgmma
+    (IGMMA integer, HGMMA floating point) against mma.sync (IMMA, HMMA).
+    Fails if am_matmul's library lacks either wgmma or holds an mma.sync;
+    says so, without failing, where cuobjdump is missing."""
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return (f"am_matmul SASS: cuobjdump not found beside nvcc or on "
+                f"PATH; instructions not counted")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("IGMMA", "HGMMA", "IMMA", "HMMA")}
+    if min(counts["IGMMA"], counts["HGMMA"]) == 0 \
+            or counts["IMMA"] + counts["HMMA"]:
+        fail(f"am_matmul SASS holds {counts}: want wgmma (IGMMA, HGMMA) "
+             f"and no mma.sync (IMMA, HMMA)")
+    return (f"am_matmul SASS ({os.path.basename(lib)}, cuobjdump -sass): "
+            f"IGMMA {counts['IGMMA']}, HGMMA {counts['HGMMA']} (wgmma) | "
+            f"IMMA {counts['IMMA']}, HMMA {counts['HMMA']} (mma.sync)")
 
 
 def search_parity(name, q, p, dim, errs) -> None:
@@ -3173,6 +3208,7 @@ def main() -> int:
     _build.build_all()
     say(f"[setup] built {', '.join(_build.SOURCES)} with nvcc in "
         f"{time.perf_counter() - t0:.1f} s")
+    say(f"[setup] {sass_line(_build.library_path('am_matmul'))}")
     note("1 setup", f"kernels built in {time.perf_counter() - t0:.1f} s; {card}")
 
     space = HDSpace()                          # D = 40,960, n = 16
@@ -3277,6 +3313,12 @@ def main() -> int:
     q_rag = with_corner_rows(convert.words_to_tensor(rng.integers(
         0, 2 ** 32, (253, 1001), dtype=np.uint32), dev), p_rag)
     search_parity("ragged W", q_rag.contiguous(), p_rag, 32 * 1001, errs)
+    rag = am_matmul.plan(253, 1001, 1001)
+    if rag["tma"]:
+        fail(f"am_matmul_packed at W = 1,001 would stage by TMA: {rag}")
+    say(f"[parity] am_matmul_packed at W = 1,001 staged its words by "
+        f"cp.async (no TMA: W % 4 != 0), {rag['rows']} x {rag['protos']} a "
+        f"block, {rag['blocks']} blocks")
     search_parity("dim != 32 W", q_rag.contiguous(), p_rag, 32 * 1001 - 7,
                   errs)
 
@@ -3472,11 +3514,37 @@ def main() -> int:
     if slab <= 0:
         fail(f"search slab: hamming_am_slab_protos returned {slab}")
     slabs, rows_b = -(-s // slab), _search.BLOCK_B
-    say(f"[time] search tiling (hamming_am, am_matmul_packed) at B={b_rd}, "
-        f"S={s}: {rows_b} reads x {slab} prototypes a block, "
-        f"{slabs * -(-b_rd // rows_b)} blocks on {sms} SMs; a launch reads "
-        f"the AM ({s * w * 4 / 1e6:.1f} MB) once and the packed reads "
-        f"{slabs * b_rd * w * 4 / 1e6:.1f} MB (once a block, mostly L2)")
+    say(f"[time] hamming_am tiling at B={b_rd}, S={s}: {rows_b} reads x "
+        f"{slab} prototypes a block, {slabs * -(-b_rd // rows_b)} blocks on "
+        f"{sms} SMs; a launch reads the AM ({s * w * 4 / 1e6:.1f} MB) once "
+        f"and the packed reads {slabs * b_rd * w * 4 / 1e6:.1f} MB (once a "
+        f"block, mostly L2)")
+    pk = am_matmul.plan(b_rd, s, w)
+    bk = am_matmul.plan(b_rd, s, space.dim, packed=False)
+    if pk["protos"] != slab or bk["protos"] != slab or not pk["tma"] \
+            or not bk["tma"]:
+        fail(f"am_matmul tiling at the main path's shapes: {pk}, {bk}")
+    m_, n_ = pk["rows"], pk["protos"]
+    say(f"[time] am_matmul_packed tiling at B={b_rd}, S={s}, W={w}: "
+        f"{m_} x {n_} (queries x prototypes) a block, {pk['stages']} stages "
+        f"of {pk['step']} words by TMA, {pk['blocks']} blocks on "
+        f"{pk['sms']} SMs, "
+        f"{pk['smem']} bytes of shared memory a block; a launch reads "
+        f"{(s + b_rd) * w * 4 / 1e6:.1f} MB from device memory (the AM and "
+        f"the packed reads once; the reads again in every block, "
+        f"{pk['blocks'] * b_rd * w * 4 / 1e6:.1f} MB, mostly L2); a k32 "
+        f"column: (M + N) x 24 / 64 = {(m_ + n_) * 24 / 64:.0f} integer "
+        f"clocks of +-1 expansion against M N 64 / 8,192 = "
+        f"{m_ * n_ * 64 / 8192:.0f} tensor clocks")
+    say(f"[time] am_matmul (bf16) tiling at B={b_rd}, S={s}, "
+        f"K={space.dim}: {bk['rows']} x {bk['protos']} a block, "
+        f"{bk['stages']} stages of {bk['step']} elements by TMA (128-byte "
+        f"swizzle), "
+        f"{bk['blocks']} blocks on {bk['sms']} SMs, {bk['smem']} bytes of "
+        f"shared memory a block; a launch reads "
+        f"{(s + b_rd) * space.dim * 2 / 1e6:.1f} MB from device memory "
+        f"(the bf16 AM once; the query tile again in every block, "
+        f"{bk['blocks'] * b_rd * space.dim * 2 / 1e9:.2f} GB, mostly L2)")
 
     # Library yardsticks on the pre-expanded +-1 operands (they do not pay
     # for the expansion; no path calls them).

@@ -1,16 +1,15 @@
 // Shared device code of the three search kernels (fused_profile.cu,
-// hamming_am.cu, am_matmul.cu): cp.async staging, the tensor-core
-// instructions they run, the row popcounts of the b1 search and the
-// slab tiling of the two standalone searches.
+// hamming_am.cu, am_matmul.cu): cp.async staging, the b1 mma, the +-1
+// expansion of packed words, the row popcounts of the b1 search and the
+// slab tiling of the standalone searches (am_matmul.cu takes only its
+// slab width; its wgmma code is in wgmma_common.cuh).
 //
-// Packed HD vectors are uint32 words, LSB-first; a search step covers 32
-// words of every row, staged in shared memory as 32-word rows of eight
-// 16-byte chunks.  Chunk c of row r sits at chunk c ^ (r & kMask):
-//   * kMask = 1 (the b1 layout): thread (g = lane / 4, t = lane % 4)
-//     loads chunks 2t and 2t + 1 of rows g and g + 8, so a quarter warp
-//     (rows g, g + 1, all t) hits 8 distinct chunks, all 32 banks;
-//   * kMask = 7 (the s8 layout): every thread loads whole words of its
-//     rows, and the 8 rows g of a warp hit 8 distinct chunks.
+// Packed HD vectors are uint32 words, LSB-first; a b1 search step covers
+// 32 words of every row, staged in shared memory as 32-word rows of eight
+// 16-byte chunks.  Chunk c of row r sits at chunk c ^ (r & kMask); with
+// kMask = 1 (the b1 layout) thread (g = lane / 4, t = lane % 4) loads
+// chunks 2t and 2t + 1 of rows g and g + 8, so a quarter warp (rows g,
+// g + 1, all t) hits 8 distinct chunks, all 32 banks.
 #pragma once
 
 #include <cstdint>
@@ -63,19 +62,6 @@ __device__ __forceinline__ void mma_and_popc(int (&c)[4], uint32_t a0,
                                              uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// c += A B over int8: a0/a2 bytes of row g, a1/a3 of row g + 8 (k 4t..4t+3
-// and 16 + 4t..), b0/b1 of column g (the same k).  Not volatile asm, so
-// the compiler may interleave it with the +-1 expansion around it.
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
@@ -165,7 +151,7 @@ inline cudaError_t launch_row_popcount(const uint32_t* src, int ld, int W,
   return cudaGetLastError();
 }
 
-// -- the slab tiling of hamming_am and am_matmul's packed entry -----------
+// -- the slab tiling of hamming_am (and the slab width of am_matmul) -------
 //
 // A block owns all kRows queries of its query tile (the whole batch at
 // B <= 256) and a slab of 16 NT prototypes, and walks W in 32-word steps

@@ -134,6 +134,12 @@ def current_stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def library_path(name: str) -> pathlib.Path:
+    """The file the library of ``csrc/<name>.cu`` is (or will be) built
+    into."""
+    return _lib_path(name, nvcc())
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building all on first use."""
     lib = _libs.get(name)

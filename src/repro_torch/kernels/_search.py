@@ -1,6 +1,7 @@
 """What the two standalone search kernels share on the Python side:
-``hamming_am`` and ``am_matmul``'s packed entry run the same slab tiling
-(``csrc/mma_common.cuh``, ``mma::slab``) on the same packed operands.
+``hamming_am`` and ``am_matmul``'s packed entry take the same packed
+operands and cut them alike: query tiles of 256 rows and the slab of
+prototypes ``mma::slab::pick_nt`` chooses (``csrc/mma_common.cuh``).
 """
 
 from __future__ import annotations

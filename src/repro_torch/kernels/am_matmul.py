@@ -2,8 +2,14 @@
 
 Replaces the TPU kernel ``repro/kernels/am_matmul.py::_kernel``
 (launched by ``am_matmul``) with CUDA C++ for ``sm_90a``
-(``csrc/am_matmul.cu``): ``agreement = (dim + Q_hat @ P_hat.T) / 2`` over
-the {-1, +1} expansions of the packed vectors.  Two entries:
+(``csrc/am_matmul.cu`` with ``csrc/wgmma_common.cuh``):
+``agreement = (dim + Q_hat @ P_hat.T) / 2`` over the {-1, +1} expansions
+of the packed vectors.  Both entries run ``wgmma`` in one block shape:
+four consumer warpgroups own the 256 queries of a query tile and a
+producer warpgroup fills an ``mbarrier`` ring of shared-memory stages
+with a slab of N prototypes (:func:`plan`; N = 80 at the main path's
+shapes), so each prototype byte is read from device memory once a
+launch.
 
 :func:`am_matmul_packed` (the search path's entry, ``ops.am_agreement(...,
 "matmul")``) takes the packed ``(B, W)`` / ``(S, W)`` int32 words.
@@ -11,17 +17,21 @@ the {-1, +1} expansions of the packed vectors.  Two entries:
 * What bounds it on the card: operations -- ``2 B S D`` products and
   adds at the int8 tensor rate; the packed AM is 1/16 of its bf16
   expansion, so bytes no longer bound it.
-* What the design does about it: ``mma.sync`` m16n8k32 s8, with each
-  packed word expanded to +-1 int8 fragments in registers (a shift, a
-  sign-replicating ``prmt`` and an OR a register), so no +-1 matrix
-  reaches device memory.  A block owns every query of a 256-row tile
-  and a slab of prototypes (``hamming_am.slab_protos``) and walks W in
-  32-word steps, so each prototype word is read once a launch.
+* What the design does about it: ``wgmma`` m64nNk32 s8.  The producer
+  brings 16 packed words of every row a stage (TMA where W % 4 == 0 and
+  the bases are 16-byte aligned, else ``cp.async`` word by word) and
+  expands the slab's words once a block into +-1 bytes in shared memory
+  (the 128-byte-swizzled K-major layout ``wgmma`` reads); the consumers
+  expand their own query rows straight into the A fragment in registers.
+  Words past W expand to 0, so they add nothing.  No +-1 matrix reaches
+  device memory.
 
 :func:`am_matmul` (the TPU kernel's own interface) takes +-1 bf16
-``(B, D)`` / ``(S, D)`` operands: ``mma.sync`` m16n8k16 bf16 -> fp32 on
-128 x 128 output tiles from a 3-deep ``cp.async`` ring; bound by the
-bytes of its bf16 prototype operand.  No path calls it.
+``(B, D)`` / ``(S, D)`` operands: ``wgmma`` m64nNk16 bf16 -> fp32 from
+shared-memory descriptors, 64-element stages brought by TMA with the
+128-byte swizzle (plain loads into the same layout where D % 8 != 0 or a
+base is not 16-byte aligned); bound by the bytes of its bf16 prototype
+operand.  No path calls it.
 
 Both are exact: every partial sum is an integer of magnitude at most D.
 B, S and W (or D) may be ragged, and nothing is padded in device memory.
@@ -39,8 +49,8 @@ import torch
 
 from repro_torch.kernels import _build, _search
 
-#: Prototype rows one block of the bf16 entry covers (``kBN`` in the
-#: source); the grid's second axis holds at most 65,535 blocks.
+#: The bf16 entry takes at most 65,535 x BLOCK_S prototypes a launch
+#: (``am_matmul_launch`` refuses more).
 BLOCK_S = 128
 
 
@@ -64,6 +74,8 @@ def _lib():
         lib.am_matmul_packed_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.am_matmul_packed_launch.restype = ctypes.c_int
+        lib.am_matmul_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.am_matmul_plan.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -171,3 +183,21 @@ def am_matmul_packed(q_packed: torch.Tensor, p_packed: torch.Tensor, *,
 
 
 am_matmul_packed.launches = 0
+
+
+def plan(b: int, s: int, k: int, *, packed: bool = True) -> dict:
+    """The tiling of a launch of the packed (``k`` = W words) or the bf16
+    (``k`` = D elements) entry at ``(b, s)`` on the current card:
+    ``rows`` and ``protos`` a block, ring ``stages``, ``blocks``, dynamic
+    shared memory a block (``smem``, bytes), the card's ``sms``,
+    ``tma``: whether ``k`` lets the stages come by TMA (given 16-byte
+    aligned bases; else they are staged without it), and ``step``: the
+    words (packed) or elements (bf16) of a row a stage."""
+    out = (ctypes.c_int * 8)()
+    err = _lib().am_matmul_plan(int(packed), b, s, k, out)
+    if err != 0:
+        raise RuntimeError(f"am_matmul_plan failed with CUDA error {err}")
+    keys = ("rows", "protos", "stages", "blocks", "smem", "sms", "tma",
+            "step")
+    return {key: (bool(v) if key == "tma" else int(v))
+            for key, v in zip(keys, out)}

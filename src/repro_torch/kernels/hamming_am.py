@@ -91,5 +91,5 @@ hamming_am.launches = 0
 def slab_protos(b: int, s: int) -> int:
     """Prototypes one block of the launch at ``(b, s)`` covers on the
     current card: ``16 NT``, with NT chosen by ``mma::slab::pick_nt``
-    (the same slab for ``am_matmul``'s packed entry)."""
+    (the same slab width as ``am_matmul``'s entries: ``am_matmul.plan``)."""
     return _lib().hamming_am_slab_protos(b, s)

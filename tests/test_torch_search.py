@@ -208,6 +208,19 @@ CUDA_CASES = SWEEP + [
     (300, 700, 40),      # W = 40: a partial 32-word step, 16-byte rows
 ]
 
+#: am_matmul's tile edges (``am_matmul.plan``, on a 132-SM H100): the
+#: slab is 32 prototypes below ~4,200 and 80 at ~9,800.  S one past and
+#: one short of a slab, B around the 256-query tile, W = 1, 4 and
+#: W % 8 != 0 (a partial 8-word stage), W % 4 != 0 (no TMA).
+EDGE_CASES = [
+    (1, 33, 8),          # B = 1; S one past a slab of 32
+    (255, 31, 40),       # S one short of a slab of 32
+    (257, 65, 4),        # two query tiles, the second of one row
+    (513, 95, 12),       # three query tiles; W % 8 = 4
+    (2, 9761, 5),        # S one past 122 slabs of 80; W % 4 != 0
+    (255, 9759, 8),      # S one short of 122 slabs of 80
+]
+
 
 def _with_equal_and_complement(q, p):
     """Row 0 of q equals prototype 0 (agreement dim); row 1 is the
@@ -236,7 +249,7 @@ def test_hamming_am_kernel_matches_plain(cuda, b, s, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,w", CUDA_CASES)
+@pytest.mark.parametrize("b,s,w", CUDA_CASES + EDGE_CASES)
 def test_am_matmul_kernel_matches_plain(cuda, b, s, w):
     """The bf16 entry (the TPU kernel's interface; no path calls it)."""
     q, p = _packed(b, s, w, seed=b * s + w + 1)
@@ -255,7 +268,7 @@ def test_am_matmul_kernel_matches_plain(cuda, b, s, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,w", CUDA_CASES)
+@pytest.mark.parametrize("b,s,w", CUDA_CASES + EDGE_CASES)
 @pytest.mark.parametrize("extra", [0, 64, -7])
 def test_am_matmul_packed_kernel_matches_plain(cuda, b, s, w, extra):
     """The packed entry on the search path (``ops.am_agreement(...,
@@ -278,11 +291,12 @@ def test_am_matmul_packed_kernel_matches_plain(cuda, b, s, w, extra):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [8, 40, 44, 63, 100, 130, 4099])
+@pytest.mark.parametrize("k", [8, 40, 44, 63, 64, 72, 100, 128, 130, 4096,
+                               4099])
 def test_am_matmul_kernel_ragged_k(cuda, k):
-    """K below, across and not a multiple of the 64-wide K tile, and K
-    not a multiple of 8 (rows staged without cp.async); entries +-1 or 0,
-    as in a zero-padded operand; dim != K."""
+    """K below, at, across and not a multiple of the 64-element (128-byte)
+    TMA box, and K not a multiple of 8 (rows staged with plain loads,
+    not TMA); entries +-1 or 0, as in a zero-padded operand; dim != K."""
     rng = np.random.default_rng(k)
     q = torch.from_numpy(rng.integers(-1, 2, (131, k)).astype(np.float32))
     p = torch.from_numpy(rng.integers(-1, 2, (257, k)).astype(np.float32))
@@ -291,6 +305,47 @@ def test_am_matmul_kernel_ragged_k(cuda, k):
     got = am_matmul.am_matmul(q.to(cuda), p.to(cuda), dim=k + 3)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_am_matmul_edge_cases_cut_the_tiles_as_they_say(cuda):
+    """On a 132-SM card the edge cases' S falls one past or one short of
+    the slab ``am_matmul.plan`` picks, for both entries; W % 4 decides
+    whether the packed stages can come by TMA."""
+    for b, s, w in EDGE_CASES:
+        for packed, k in ((True, w), (False, 32 * w)):
+            tiles = am_matmul.plan(b, s, k, packed=packed)
+            n = tiles["protos"]
+            assert tiles["rows"] == 256 and n in (32, 48, 64, 80, 96)
+            assert tiles["blocks"] == -(-s // n) * -(-b // 256)
+            assert tiles["tma"] == (k % (4 if packed else 8) == 0)
+            if tiles["sms"] == 132:
+                assert s == 1 or s % n in (1, n - 1), (b, s, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [64, 1280])
+def test_am_matmul_packed_rows_off_by_one_word(cuda, w):
+    """Operands that start one word past a 16-byte boundary (a row slice
+    of a larger buffer): W % 4 == 0, yet the stages must come by cp.async,
+    not TMA, and give the same agreement."""
+    b, s = 37, 130
+    q, p = _packed(b, s, w, seed=w)
+    q = _with_equal_and_complement(q, p)
+    want = am_matmul.am_matmul_packed_plain(_t(q), _t(p))
+
+    def shifted(a):
+        buf = torch.zeros(a.size + 1, dtype=torch.int32, device=cuda)
+        buf[1:] = _t(a).reshape(-1).to(cuda)
+        view = buf[1:].view(a.shape)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    assert am_matmul.plan(b, s, w)["tma"]   # only the alignment says no
+    got = am_matmul.am_matmul_packed(shifted(q), shifted(p))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert int(got[0, 0]) == 32 * w and int(got[1, s - 1]) == 0
 
 
 @pytest.mark.cuda

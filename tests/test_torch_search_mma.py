@@ -2,26 +2,33 @@
 kernels, held bit-exactly against ``repro`` on the CPU.
 
 The kernels (``csrc/hamming_am.cu``, ``csrc/am_matmul.cu`` and their
-shared ``csrc/mma_common.cuh``) run only on the card, so their arithmetic
-is modelled here step for step, in torch on the packed words:
+shared ``csrc/mma_common.cuh`` and ``csrc/wgmma_common.cuh``) run only on
+the card, so their arithmetic is modelled here step for step, in torch on
+the packed words:
 
-* the on-chip +-1 expansion of the packed ``am_matmul`` entry: thread t
-  of a quad takes bits ``8 i + 7 - t`` (low fragment register) and
-  ``8 i + 3 - t`` (high one) of a word, shifted to the top of byte i,
-  replicated over the byte by ``prmt``'s sign mode and OR-ed with 0x01,
-  which gives -1 for a set bit and +1 for a clear one (``-to_pm1`` for
-  both operands, so every product is ``to_pm1``'s); the mma m16n8k32
-  reads bytes i of thread t's registers as k = 4 t + i and 16 + 4 t + i,
-  for the query and the prototype operand alike;
-* the slab tiling both kernels share (``mma::slab``): query tiles of 256
-  rows, slabs of 16 NT prototypes, 32-word steps with the rows past B or
-  S and the words past W staged as zeros;
+* the on-chip +-1 expansion of the packed ``am_matmul`` entry: k
+  ``4 t + i`` of a word holds bit ``8 i + 7 - t`` and ``16 + 4 t + i`` bit
+  ``8 i + 3 - t``, shifted to the top of byte i, replicated over the byte
+  by ``prmt``'s sign mode and OR-ed with 0x01, which gives -1 for a set
+  bit and +1 for a clear one (``-to_pm1`` for both operands, so every
+  product is ``to_pm1``'s).  The query operand is expanded in registers
+  into the A fragment of ``wgmma`` m64nNk32 s8 (thread t of a quad holds
+  k = 4 t + i and 16 + 4 t + i, mma.sync m16n8k32's layout), the
+  prototype operand into shared memory in the same k order;
+* the shared-memory layout ``wgmma`` reads (K-major, 128-byte swizzle:
+  the 16-byte chunk c of row r at c ^ (r & 7), rows 128 bytes apart) as
+  the expanding warps, the cp.async staging and TMA write it, and as the
+  matrix descriptor (start address, 1,024-byte stride between 8-row
+  groups) addresses it;
+* the tilings: query tiles of 256 rows, slabs of 16 NT prototypes (b1:
+  32-word steps; s8: 16-word stages, four swizzle atoms, the words past
+  W expanded to 0x00 in the last partial stage), with the rows past B or
+  S staged as zeros;
 * the b1 search identity ``agreement = dim - |a| - |b| + 2 popc(a & b)``
   with ``|b|`` summed from the staged 16-byte chunks of the slab, ``|a|``
   from the query rows, and each 32-word step split into four k256 mmas
   whose words pair up as the fragments take them;
-* the s8 search with the words past W skipped (a zero word would expand
-  to -1s) and ``(dim + acc) / 2`` truncated toward zero.
+* the s8 search, ``(dim + acc) / 2`` truncated toward zero.
 
 Neither kernel splits K, so there is no partial-sum merge to model.
 Nothing on the CUDA path calls these models.  Every output is an
@@ -214,25 +221,174 @@ def test_b1_search_model_does_not_depend_on_the_slab(nt):
                        hamming_am.hamming_am_plain(tq, tp))
 
 
+# -- the shared-memory layout wgmma reads (wgmma_common.cuh) -----------------
+
+ATOM = 128          # bytes of K a swizzle atom holds (one row)
+STAGE_WORDS = 16    # packed words a stage of the s8 search
+ATOMS = STAGE_WORDS // 4   # the swizzle atoms a stage expands to
+
+
+def desc_sw128(addr: int) -> int:
+    """``wg::desc_sw128``: the descriptor of a K-major 128-byte-swizzled
+    operand at shared address ``addr``."""
+    return (((addr & 0x3FFFF) >> 4) | (1 << 16) | ((1024 >> 4) << 32)
+            | (1 << 62))
+
+
+def desc_byte_address(desc: int, n, k):
+    """The shared-memory byte the hardware reads for row ``n``, byte ``k``
+    (0..31: one k32 s8 / k16 bf16 step) of the operand ``desc`` describes:
+    start + (n // 8) * SBO + (n % 8) * 128 + k, with the 16-byte chunk bits
+    (4-6) XOR-ed by the row-in-group bits (7-9) of the address."""
+    assert desc >> 62 == 1                     # the 128-byte swizzle
+    start = (desc & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    addr = start + (n // 8) * sbo + (n % 8) * ATOM + k
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def swizzled_offset(r, byte):
+    """Where a K-major 128-byte-swizzled tile keeps byte ``byte`` (0..127)
+    of row ``r``: what TMA with ``CU_TENSOR_MAP_SWIZZLE_128B``, the
+    expanding warps and the bf16 entry's plain staging write."""
+    return r * ATOM + (((byte // 16) ^ (r % 8)) * 16) + byte % 16
+
+
+def expand_stage(words: torch.Tensor, wlim: int) -> torch.Tensor:
+    """The expanding warps on one stage: ``(N, STAGE_WORDS)`` packed words
+    -> the stage's swizzle atoms as ``ATOMS N 128`` bytes (atom a holds
+    words 4 a .. 4 a + 3 of every row, word j's 32 bytes in k order at
+    bytes 32 (j % 4) ..).  Words at or past ``wlim`` expand to 0x00."""
+    n = words.shape[0]
+    exp = expand_in_k_order(words).to(torch.int64) & 0xFF   # (N, 8, 32)
+    exp[:, max(wlim, 0):] = 0
+    smem = torch.full((ATOMS * n * ATOM,), -1, dtype=torch.int64)
+    rows = torch.arange(n)[:, None, None]
+    j = torch.arange(STAGE_WORDS)[None, :, None]
+    k = torch.arange(32)[None, None, :]
+    off = (j // 4) * n * ATOM + swizzled_offset(rows, 32 * (j % 4) + k)
+    assert off.unique().numel() == off.numel() == smem.numel()
+    smem[off.reshape(-1)] = exp.reshape(-1)
+    return smem
+
+
+def read_stage(smem: torch.Tensor, n: int) -> torch.Tensor:
+    """What ``wgmma`` reads from an expanded stage: for word j the
+    descriptor ``desc_sw128(stage) + (atom offset + 32 (j % 4)) >> 4``,
+    rows 0..N-1, k 0..31 -> ``(N, STAGE_WORDS, 32)`` int8."""
+    base = 1024 * 7                            # any 1,024-byte boundary
+    rows = torch.arange(n)[:, None]
+    k = torch.arange(32)[None, :]
+    out = torch.empty((n, STAGE_WORDS, 32), dtype=torch.int64)
+    for j in range(STAGE_WORDS):
+        desc = desc_sw128(base) + (((j // 4) * n * ATOM + (j % 4) * 32) >> 4)
+        out[:, j] = smem[desc_byte_address(desc, rows, k) - base]
+    return torch.where(out >= 128, out - 256, out).to(torch.int8)
+
+
+@pytest.mark.parametrize("n", [32, 48, 64, 80, 96])
+def test_sw128_layout_puts_every_byte_once_and_reads_it_back(n):
+    """(a) Every (row, word, k) of an expanded stage lands on its own byte
+    of its atoms, and the descriptor addressing of each k32 step reads
+    back exactly the bytes the expanding warps wrote for it."""
+    rng = np.random.default_rng(n)
+    words = convert.words_to_tensor(
+        rng.integers(0, 2 ** 32, (n, STAGE_WORDS), dtype=np.uint32))
+    smem = expand_stage(words, STAGE_WORDS)
+    assert (smem >= 0).all()                   # no byte left unwritten
+    got = read_stage(smem, n)
+    assert torch.equal(got, expand_in_k_order(words))
+
+
+@pytest.mark.parametrize("rows", [64, 80, 256])
+def test_sw128_bf16_tiles_read_back_by_descriptor(rows):
+    """(a) The bf16 entry's stages: a ``(rows, 64)`` bf16 tile written as
+    TMA's 128-byte swizzle (or the plain staging) writes it, read by the
+    descriptors of the four k16 steps (+32 bytes each) and, for the query
+    tile, of each warpgroup's 64 rows (+8 KB each): every element once."""
+    ids = torch.arange(rows * 64, dtype=torch.int64).reshape(rows, 64)
+    smem = torch.full((rows * ATOM,), -1, dtype=torch.int64)
+    r = torch.arange(rows)[:, None]
+    e = torch.arange(64)[None, :]
+    off = swizzled_offset(r, 2 * e)            # element e at byte 2 e
+    assert off.unique().numel() == off.numel()
+    smem[off.reshape(-1)] = ids.reshape(-1)
+    base = 1024 * 3
+    m = 64 if rows == 256 else rows            # a warpgroup's rows, or N
+    for m0 in range(0, rows, m):
+        for kk in range(4):
+            desc = desc_sw128(base + m0 * ATOM) + 2 * kk
+            n = torch.arange(m)[:, None]
+            k = torch.arange(0, 32, 2)[None, :]            # a bf16 every 2
+            got = smem[desc_byte_address(desc, n, k) - base]
+            assert torch.equal(got, ids[m0:m0 + m, 16 * kk:16 * kk + 16])
+
+
+def test_pad_words_expand_to_zero_bytes():
+    """(b) In the last partial stage the words at or past W expand to
+    0x00 bytes (TMA and cp.async stage them as zero words, which would
+    expand to +1s), and only those."""
+    rng = np.random.default_rng(5)
+    words = convert.words_to_tensor(
+        rng.integers(0, 2 ** 32, (40, STAGE_WORDS), dtype=np.uint32))
+    for wlim in range(0, STAGE_WORDS + 1):
+        staged = words.clone()
+        staged[:, wlim:] = 0                   # the zero fill past W
+        got = read_stage(expand_stage(staged, wlim), 40)
+        assert (got[:, wlim:] == 0).all()
+        assert torch.equal(got[:, :wlim], expand_in_k_order(words[:, :wlim]))
+
+
 # -- the s8 search (am_matmul's packed entry) -------------------------------
 
-def s8_search_model(q: torch.Tensor, p: torch.Tensor, dim: int):
+def pick_nt(b: int, s: int, sms: int = 132) -> int:
+    """``mma::slab::pick_nt``: the n8 tiles a warp of hamming_am takes, and
+    16 NT the slab of both am_matmul entries."""
+    tiles = -(-b // ROWS)
+    best, best_cost = 6, None
+    for nt in range(6, 1, -1):
+        cost = -(-(-(-s // (16 * nt)) * tiles) // sms) * nt
+        if best_cost is None or cost < best_cost:
+            best, best_cost = nt, cost
+    return best
+
+
+def s8_search_model(q: torch.Tensor, p: torch.Tensor, dim: int,
+                    n: int | None = None):
+    """The packed entry: 256-query tiles x slabs of n prototypes (``pick_nt``
+    on a 132-SM card by default), 16-word stages; each stage's slab
+    expanded into shared memory (pad words to 0x00) and read back by
+    descriptor, each query word expanded into the A fragment (a pad word
+    to +1s: B is 0 there); the wgmma sum over every staged word."""
     b, w = q.shape
     s = p.shape[0]
+    n = 16 * pick_nt(b, s) if n is None else n
+    wp = -(-w // STAGE_WORDS) * STAGE_WORDS
     out = torch.empty((b, s), dtype=torch.int64)
-    for b0, b1, s0, s1, protos, wp in _tiles(b, s, w):
-        qt = expand_in_k_order(_stage(q, b0, b1, ROWS, wp)).to(torch.int64)
-        pt = expand_in_k_order(_stage(p, s0, s1, protos, wp)).to(torch.int64)
-        acc = torch.zeros((ROWS, protos), dtype=torch.int64)
-        for ks in range(wp // STEP):
-            wlim = min(STEP, w - ks * STEP)             # words past W skipped
-            cols = slice(ks * STEP, ks * STEP + wlim)
-            acc += (qt[:, cols].reshape(ROWS, -1)
-                    @ pt[:, cols].reshape(protos, -1).T)
-        agree = torch.div(dim + acc[:b1 - b0, :s1 - s0], 2,
-                          rounding_mode="trunc")
-        out[b0:b1, s0:s1] = agree
+    for b0 in range(0, b, ROWS):
+        b1 = min(b, b0 + ROWS)
+        a = expand_in_k_order(_stage(q, b0, b1, ROWS, wp)).to(torch.int64)
+        for s0 in range(0, s, n):
+            s1 = min(s, s0 + n)
+            pt = _stage(p, s0, s1, n, wp)
+            bop = torch.cat([
+                read_stage(expand_stage(pt[:, w0:w0 + STAGE_WORDS], w - w0), n)
+                for w0 in range(0, wp, STAGE_WORDS)], dim=1).to(torch.int64)
+            acc = a.reshape(ROWS, -1) @ bop.reshape(n, -1).T
+            out[b0:b1, s0:s1] = torch.div(dim + acc[:b1 - b0, :s1 - s0], 2,
+                                          rounding_mode="trunc")
     return out.to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [32, 48, 64, 80, 96])
+def test_s8_search_model_does_not_depend_on_the_slab(n):
+    """(c) Every slab the kernels may pick (32..96, from S and the SM
+    count) gives the same agreement: S = 97 leaves a partial last slab,
+    300 queries two query tiles, W = 21 a partial last stage."""
+    q, p = _search_inputs(300, 97, 21, seed=n)
+    tq, tp = convert.words_to_tensor(q), convert.words_to_tensor(p)
+    assert torch.equal(s8_search_model(tq, tp, 32 * 21, n),
+                       am_matmul.am_matmul_packed_plain(tq, tp))
 
 
 @pytest.mark.parametrize("b,s,w", SEARCH_CASES)
@@ -264,15 +420,17 @@ def test_s8_search_model_matches_repro(b, s, w, extra):
 
 
 def test_s8_model_with_a_zero_word_expanded_would_be_wrong():
-    """The words past W must be skipped, not staged as zeros and expanded:
-    a zero word expands to 32 x +1 (a clear bit), which adds 32 a pad word
-    to every product of two padded rows."""
+    """The words past W must expand to 0x00, not be expanded as the zero
+    words they are staged as: a zero word expands to 32 x +1 (a clear
+    bit), which adds 32 a pad word to every product of two padded rows
+    (16 to the agreement)."""
     q, p = _search_inputs(3, 4, 5, seed=3)
     tq, tp = convert.words_to_tensor(q), convert.words_to_tensor(p)
-    qe = expand_in_k_order(bitops.pad_to_multiple(tq, 1, STEP)).to(
+    qe = expand_in_k_order(bitops.pad_to_multiple(tq, 1, STAGE_WORDS)).to(
         torch.int64).reshape(3, -1)
-    pe = expand_in_k_order(bitops.pad_to_multiple(tp, 1, STEP)).to(
+    pe = expand_in_k_order(bitops.pad_to_multiple(tp, 1, STAGE_WORDS)).to(
         torch.int64).reshape(4, -1)
     padded = torch.div(32 * 5 + qe @ pe.T, 2, rounding_mode="trunc")
     exact = s8_search_model(tq, tp, 32 * 5)
-    assert torch.equal(padded - exact, torch.full((3, 4), 16 * (STEP - 5)))
+    assert torch.equal(padded - exact,
+                       torch.full((3, 4), 16 * (STAGE_WORDS - 5)))

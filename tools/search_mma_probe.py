@@ -8,11 +8,15 @@ Builds ``tools/search_mma_probe.cu`` with the kernels' own nvcc command
 for ``mma.sync`` m16n8k256 b1 (``.and.popc`` and ``.xor.popc``; the
 library holds both, so building it shows ptxas takes ``.xor.popc`` for
 sm_90a) and m16n8k32 s8 (with and without the 0/1 byte unpack of the B
-fragment), the issue rate per SM and clock (the SM clock ``nvidia-smi``
-reports as ``clocks.max.sm``, as chip_smoke takes it) and the time the
-main path's search (B = 256 reads, S = 9,780 prototypes, D = 40,960
-bits) would need at that rate.  It also checks the b1 fragment mapping
-the fused kernel relies on, on one warp.
+fragment), and for ``wgmma`` m64n128k32 s8 and m64n128k16 bf16 from
+shared memory and m64n80k32 s8 with A from registers (``am_matmul``'s
+instructions), the issue rate per SM and clock (the SM clock
+``nvidia-smi`` reports as ``clocks.max.sm``, as chip_smoke takes it),
+the operations a second against the dense peaks the bounds use (1,979
+TOP/s int8, 989 TFLOP/s bf16), and the time the main path's search
+(B = 256 reads, S = 9,780 prototypes, D = 40,960 bits) would need at
+that rate.  It also checks the b1 fragment mapping the fused kernel
+relies on, on one warp.
 """
 
 from __future__ import annotations
@@ -71,14 +75,25 @@ def main() -> int:
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = float(nvidia_smi("clocks.max.sm", nounits=True)) * 1e6
-    blocks, threads, iters = sms * 4, 512, 4096
-    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
-    mmas = blocks * threads // 32 * iters * 8
-    names = {0: ("b1 m16n8k256 .and.popc", 16 * 8 * 256),
-             1: ("s8 m16n8k32", 16 * 8 * 32),
-             2: ("s8 m16n8k32 + B unpack", 16 * 8 * 32),
-             3: ("b1 m16n8k256 .xor.popc", 16 * 8 * 256)}
-    for kind, (name, macs) in names.items():
+    out = torch.empty(sms * 4 * 512, dtype=torch.int32, device="cuda")
+    # kind: (name, multiply-adds an instruction, blocks, threads,
+    #        instructions a launch / iters, the dense peak in OP/s)
+    kinds = {0: ("b1 m16n8k256 .and.popc", 16 * 8 * 256, sms * 4, 512,
+                 sms * 4 * 16 * 8, None),
+             1: ("s8 m16n8k32", 16 * 8 * 32, sms * 4, 512, sms * 4 * 16 * 8,
+                 1979e12),
+             2: ("s8 m16n8k32 + B unpack", 16 * 8 * 32, sms * 4, 512,
+                 sms * 4 * 16 * 8, 1979e12),
+             3: ("b1 m16n8k256 .xor.popc", 16 * 8 * 256, sms * 4, 512,
+                 sms * 4 * 16 * 8, None),
+             4: ("wgmma s8 m64n128k32, A and B in smem", 64 * 128 * 32,
+                 sms * 2, 256, sms * 2 * 2 * 4, 1979e12),
+             5: ("wgmma bf16 m64n128k16, A and B in smem", 64 * 128 * 16,
+                 sms * 2, 256, sms * 2 * 2 * 4, 989e12),
+             6: ("wgmma s8 m64n80k32, A in registers", 64 * 80 * 32,
+                 sms * 2, 256, sms * 2 * 2 * 4, 1979e12)}
+    iters = 4096
+    for kind, (name, macs, blocks, threads, per_iter, peak) in kinds.items():
         def run():
             assert lib.probe_launch(kind, blocks, threads, iters,
                                     _build.ptr(out), stream) == 0
@@ -92,13 +107,16 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         sec = start.elapsed_time(end) / 5 / 1e3
-        rate = mmas / sec
+        rate = per_iter * iters / sec
         need = B * S * D / macs
-        print(f"[probe] {name}: {rate / 1e12:.4f} T mma/s "
+        share = ("" if peak is None else
+                 f" ({2 * macs * rate / peak * 100:.1f} % of the "
+                 f"{peak / 1e12:.0f} T dense peak)")
+        print(f"[probe] {name}: {rate / 1e12:.4f} T instr/s "
               f"({rate / sms / clock:.3f} per SM per clock at "
-              f"{clock / 1e6:.0f} MHz), {2 * macs * rate / 1e12:.1f} TOP/s; "
-              f"the main-path search ({need:.3e} mmas) would take "
-              f"{need / rate * 1e3:.4f} ms")
+              f"{clock / 1e6:.0f} MHz), {2 * macs * rate / 1e12:.1f} "
+              f"TOP/s{share}; the main-path search ({need:.3e} "
+              f"instructions) would take {need / rate * 1e3:.4f} ms")
     print(f"[probe] card: {nvidia_smi('name,power.limit')} | clocks.sm now "
           f"{nvidia_smi('clocks.sm')}")
     return 0
