@@ -9,10 +9,12 @@ species deltas (:func:`apply_delta`) work on the database's own device.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bitops, encoder, item_memory
 from repro_torch.core.hd_space import HDSpace
 from repro_torch.device import resolve_device
@@ -73,12 +75,21 @@ class RefDBBuilder:
     ``(tokens, lengths) -> (B, W)`` on ``device`` tensors; it defaults to
     the reference encoder over an item memory drawn in the
     ``partitionable`` threefry mode.
+
+    ``metrics`` (None resolves the process global) receives the host time
+    of each stage of the build in ``refdb_build_stage_seconds{stage}``:
+    ``window`` (:func:`window_tokens`), ``upload`` (the window batches'
+    copies to ``device``), ``encode`` (the encode and its copy back) and
+    ``assemble`` (:meth:`finish`); a sample of each of the first three per
+    genome, one of ``assemble`` per build.  The stages add no
+    synchronization: the encode's copy back stays the build's only one.
     """
 
     def __init__(self, space: HDSpace, *, window: int = 8192,
                  stride: int | None = None, batch_size: int = 64,
                  encode_fn=None, device: str | torch.device | None = None,
-                 partitionable: bool = True):
+                 partitionable: bool = True,
+                 metrics: obs.MetricsRegistry | None = None):
         self.space = space
         self.window = window
         self.stride = stride or window
@@ -93,6 +104,10 @@ class RefDBBuilder:
             def encode_fn(t, l):
                 return encoder.encode(t, l, im, tie, space)
         self._encode = encode_fn
+        self._m_stage = obs.resolve_metrics(metrics).histogram(
+            "refdb_build_stage_seconds",
+            "RefDB build host time per stage: window, upload, encode (one "
+            "sample each per genome) and assemble (one per build)", unit="s")
         self._protos: list[np.ndarray] = []
         self._species: list[np.ndarray] = []
         self._lengths: list[int] = []
@@ -106,14 +121,25 @@ class RefDBBuilder:
         """
         if name in self._names:
             raise ValueError(f"genome {name!r} already added")
+        t = time.perf_counter()
         wins, wlens = window_tokens(np.asarray(tokens), self.window,
                                     self.stride)
+        self._m_stage.observe(time.perf_counter() - t, stage="window")
+        upload = encode = 0.0
         blocks = []
         for i in range(0, len(wins), self.batch_size):
+            t = time.perf_counter()
             batch = torch.from_numpy(wins[i:i + self.batch_size]).to(self.device)
             blen = torch.from_numpy(wlens[i:i + self.batch_size]).to(self.device)
+            t_up = time.perf_counter()
             blocks.append(self._encode(batch, blen).cpu().numpy())
+            upload += t_up - t
+            encode += time.perf_counter() - t_up
+        t = time.perf_counter()
         block = np.concatenate(blocks)
+        self._m_stage.observe(upload, stage="upload")
+        self._m_stage.observe(encode + time.perf_counter() - t,
+                              stage="encode")
         self._species.append(np.full(len(block), len(self._names), np.int32))
         self._names.append(name)
         self._lengths.append(len(tokens))
@@ -124,7 +150,8 @@ class RefDBBuilder:
         """Assemble the immutable RefDB from everything added so far."""
         if not self._names:
             raise ValueError("no genomes added")
-        return RefDB(
+        t0 = time.perf_counter()
+        db = RefDB(
             prototypes=torch.from_numpy(np.concatenate(self._protos)).to(self.device),
             proto_species=torch.from_numpy(np.concatenate(self._species)).to(self.device),
             genome_lengths=torch.tensor(self._lengths, dtype=torch.int32,
@@ -132,6 +159,8 @@ class RefDBBuilder:
             num_species=len(self._names),
             species_names=tuple(self._names),
         )
+        self._m_stage.observe(time.perf_counter() - t0, stage="assemble")
+        return db
 
 
 def build_refdb(genomes: dict[str, np.ndarray], space: HDSpace, *,
@@ -277,14 +306,16 @@ def species_scores(agreement: torch.Tensor, proto_species: torch.Tensor,
     ``repro`` uses ``segment_max``: a species with no prototype comes back
     as the int32 minimum, and ids outside ``[0, num_species)`` (padding
     rows) are dropped.  Here the dropped ids land in one spare column
-    that is cut off.
+    that is cut off.  Under a running profiler the span
+    ``repro_torch.species_scores`` holds every kernel this launches.
     """
-    b = agreement.shape[0]
-    ids = proto_species.long()
-    ids = torch.where((ids < 0) | (ids >= num_species), num_species, ids)
-    out = torch.full((b, num_species + 1), torch.iinfo(torch.int32).min,
-                     dtype=torch.int32, device=agreement.device)
-    out.scatter_reduce_(1, ids[None, :].expand(b, -1),
-                        agreement.to(torch.int32), reduce="amax",
-                        include_self=True)
-    return out[:, :num_species]
+    with obs.span("repro_torch.species_scores"):
+        b = agreement.shape[0]
+        ids = proto_species.long()
+        ids = torch.where((ids < 0) | (ids >= num_species), num_species, ids)
+        out = torch.full((b, num_species + 1), torch.iinfo(torch.int32).min,
+                         dtype=torch.int32, device=agreement.device)
+        out.scatter_reduce_(1, ids[None, :].expand(b, -1),
+                            agreement.to(torch.int32), reduce="amax",
+                            include_self=True)
+        return out[:, :num_species]

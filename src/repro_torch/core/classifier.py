@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import assoc_memory
 
 UNMAPPED, UNIQUE, MULTI = 0, 1, 2
@@ -63,12 +64,15 @@ def threshold_int32(threshold_bits: float) -> int:
 
 def from_scores(scores: torch.Tensor, threshold_bits: float
                 ) -> ReadClassification:
-    """Threshold merged ``(R, S)`` species scores and categorize reads."""
-    hits = scores >= threshold_int32(threshold_bits)
-    n = hits.sum(dim=-1)
-    category = torch.where(n == 0, UNMAPPED, torch.where(n == 1, UNIQUE, MULTI))
-    return ReadClassification(hits=hits, scores=scores,
-                              category=category.to(torch.int32))
+    """Threshold merged ``(R, S)`` species scores and categorize reads
+    (the span ``repro_torch.threshold`` under a running profiler)."""
+    with obs.span("repro_torch.threshold"):
+        hits = scores >= threshold_int32(threshold_bits)
+        n = hits.sum(dim=-1)
+        category = torch.where(n == 0, UNMAPPED,
+                               torch.where(n == 1, UNIQUE, MULTI))
+        return ReadClassification(hits=hits, scores=scores,
+                                  category=category.to(torch.int32))
 
 
 def from_agreement(agreement: torch.Tensor, proto_species: torch.Tensor,

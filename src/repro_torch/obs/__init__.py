@@ -26,12 +26,19 @@ Components also accept an explicit ``metrics=`` / ``tracer=`` argument;
 host-side only and never waits for the card, so enabling observability
 cannot perturb results -- and :func:`torch_trace` is the separate,
 explicitly opt-in ``torch.profiler`` capture for kernel timelines.
+
+:func:`span` names a stretch of the port's own work (``repro_torch.*``)
+inside such a capture: a ``RecordFunction`` range, on the same clock as
+the kernels it launches, recorded only while a profiler runs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import pathlib
+
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast as _op_range
 
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      HistogramState, MetricsRegistry,
@@ -96,6 +103,34 @@ def resolve_tracer(explicit: TraceRecorder | None) -> TraceRecorder:
     return explicit if explicit is not None else _tracer
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, *, host_only: bool = False):
+    """A named range of the port's work, for a ``torch.profiler`` trace.
+
+    While a profiler records (:func:`torch_trace`, the benchmark's
+    ``--trace 1``), a ``record_function(name)``: the range lands in the
+    Chrome trace beside the kernels, copies and launches, on their clock,
+    and each launch inside it carries its correlation id.  A span over
+    host work alone (``host_only``: no torch operation inside) is instead
+    an operator range (``_RecordFunctionFast``, a ``cpu_op`` event, a
+    tenth of the cost): it then names its stretch among the trace's
+    top-level operations, where the card's idle time would fall under no
+    operation, while a span over torch operations leaves them at the top
+    level.  Otherwise one shared null context, so a span costs a flag
+    read when nothing records.  Every name starts with ``repro_torch.``::
+
+        with obs.span("repro_torch.species_scores"):
+            ...
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    if host_only:
+        return _op_range(name)
+    return _autograd_profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def torch_trace(log_dir: str | pathlib.Path | None):
     """Opt-in ``torch.profiler`` capture (CPU and CUDA activity).
@@ -107,8 +142,10 @@ def torch_trace(log_dir: str | pathlib.Path | None):
             router.run_until_idle()
 
     With a directory, the host and kernel timeline is written there as a
-    Chrome trace (``trace.json``, for Perfetto or ``chrome://tracing``).
-    CUDA activity is recorded only when a card is present.
+    Chrome trace (``trace.json``, for Perfetto or ``chrome://tracing``),
+    with every thread's operations and spans (a source's reader runs on
+    a thread of its own).  CUDA activity is recorded only when a card is
+    present.
     """
     if log_dir is None:
         yield
@@ -121,7 +158,10 @@ def torch_trace(log_dir: str | pathlib.Path | None):
         activities.append(ProfilerActivity.CUDA)
     out = pathlib.Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with profile(activities=activities,
+                 experimental_config=every_thread) as prof:
         yield
     prof.export_chrome_trace(str(out / "trace.json"))
 
@@ -134,5 +174,5 @@ __all__ = [
     "TraceRecorder", "assemble_trace",
     "NULL_METRICS", "NULL_TRACER",
     "enable_metrics", "enable_tracing", "disable", "metrics", "tracer",
-    "resolve_metrics", "resolve_tracer", "torch_trace",
+    "resolve_metrics", "resolve_tracer", "span", "torch_trace",
 ]

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import pathlib
 import time
 from typing import Callable
@@ -105,7 +106,8 @@ class ProfilingSession:
             self.space, window=self.config.window,
             stride=self.config.effective_stride,
             batch_size=self.config.batch_size,
-            encode_fn=self.backend.encode, device=self.device)
+            encode_fn=self.backend.encode, device=self.device,
+            metrics=self._obs)
 
     # -- Step 2 ------------------------------------------------------------
     def build_refdb(self, genomes: dict[str, np.ndarray]) -> RefDB:
@@ -234,60 +236,92 @@ class ProfilingSession:
         Capability dispatch, most-fused first (all bit-identical):
         ``tokens_species_scores``, then ``tokens_agreement`` (``queries``
         is ``None`` on the result), then ``encode`` +
-        :meth:`classify_queries`.
+        :meth:`classify_queries`.  Under a running ``torch.profiler`` the
+        step is the span ``repro_torch.classify_batch``, with the upload
+        (``repro_torch.to_device``) and the path taken (named for its
+        capability, ``repro_torch.encode`` for the last) beneath it.
         """
-        db = self._require_refdb(refdb)
-        toks, lens = self._to_device(tokens, lengths)
-        fused_full = getattr(self.backend, "tokens_species_scores", None)
-        fused = getattr(self.backend, "tokens_agreement", None)
-        recording = self._obs.enabled
-        t0 = time.perf_counter() if recording else 0.0
-        if fused_full is not None:
-            path = "tokens_species_scores"
-            scores = fused_full(toks, lens, db.prototypes,
-                                db.proto_species, db.num_species)
-            res = classifier.from_scores(scores, self.space.threshold_bits)
-            q = None
-        elif fused is not None:
-            path = "tokens_agreement"
-            agree = fused(toks, lens, db.prototypes)
-            res = classifier.from_agreement(
-                agree, db.proto_species, db.num_species,
-                self.space.threshold_bits)
-            q = None
-        else:
-            path = "encode_classify"
-            q = self.backend.encode(toks, lens)
-            res = self.classify_queries(q, db)
-        if recording:
-            # Host clock only, with no synchronize: the dispatch time, as
-            # repro records it; the kernels' work is untouched.
-            labels = {"backend": self.config.backend, "path": path}
-            self._m_batch_time.observe(time.perf_counter() - t0, **labels)
-            self._m_batches.inc(1, **labels)
-        n = len(toks) if num_valid is None else num_valid
-        return BatchResult(index=index, queries=q, classification=res,
-                           num_valid=n)
+        with obs.span("repro_torch.classify_batch"):
+            db = self._require_refdb(refdb)
+            with obs.span("repro_torch.to_device"):
+                toks, lens = self._to_device(tokens, lengths)
+            fused_full = getattr(self.backend, "tokens_species_scores", None)
+            fused = getattr(self.backend, "tokens_agreement", None)
+            recording = self._obs.enabled
+            t0 = time.perf_counter() if recording else 0.0
+            if fused_full is not None:
+                path = "tokens_species_scores"
+                with obs.span("repro_torch.tokens_species_scores"):
+                    scores = fused_full(toks, lens, db.prototypes,
+                                        db.proto_species, db.num_species)
+                    res = classifier.from_scores(scores,
+                                                 self.space.threshold_bits)
+                q = None
+            elif fused is not None:
+                path = "tokens_agreement"
+                with obs.span("repro_torch.tokens_agreement"):
+                    agree = fused(toks, lens, db.prototypes)
+                    res = classifier.from_agreement(
+                        agree, db.proto_species, db.num_species,
+                        self.space.threshold_bits)
+                q = None
+            else:
+                path = "encode_classify"
+                with obs.span("repro_torch.encode"):
+                    q = self.backend.encode(toks, lens)
+                    res = self.classify_queries(q, db)
+            if recording:
+                # Host clock only, with no synchronize: the dispatch time,
+                # as repro records it; the kernels' work is untouched.
+                labels = {"backend": self.config.backend, "path": path}
+                self._m_batch_time.observe(time.perf_counter() - t0,
+                                           **labels)
+                self._m_batches.inc(1, **labels)
+            n = len(toks) if num_valid is None else num_valid
+            return BatchResult(index=index, queries=q, classification=res,
+                               num_valid=n)
 
     # -- Steps 3+4+5 streamed ----------------------------------------------
     def profile(self, source, *, refdb: RefDB | None = None,
                 on_batch: BatchCallback | None = None,
                 prefetch_depth: int = 2) -> ProfileReport:
-        """Profile a sample: stream, encode, classify, estimate abundance."""
-        db = self._require_refdb(refdb)
-        acc = ProfileAccumulator(db.num_species)
-        stream = prefetch(as_source(source).batches(self.config.batch_size),
-                          prefetch_depth)
-        for i, batch in enumerate(stream):
-            res = self.classify_batch(batch.tokens, batch.lengths, refdb=db,
-                                      num_valid=batch.num_valid, index=i)
-            n = res.num_valid
-            acc.add(res.classification.hits[:n].cpu().numpy(),
-                    res.classification.category[:n].cpu().numpy())
-            self.note_host_transfers(2)       # hits + category to host
-            if on_batch is not None:
-                on_batch(res)
-        return acc.finalize(db.genome_lengths.cpu().numpy(), db.species_names)
+        """Profile a sample: stream, encode, classify, estimate abundance.
+
+        Under a running ``torch.profiler`` the call is the span
+        ``repro_torch.profile``; its children name the host's serial
+        work between batches: the wait on the prefetch queue
+        (``.next_batch``), the wait for the batch and the copy of its
+        hits and categories (``.d2h``), the report's bookkeeping
+        (``.accumulate``) and the multi-read split (``.finalize``).
+        """
+        with obs.span("repro_torch.profile"):
+            db = self._require_refdb(refdb)
+            acc = ProfileAccumulator(db.num_species)
+            stream = prefetch(
+                as_source(source).batches(self.config.batch_size),
+                prefetch_depth)
+            for i in itertools.count():
+                with obs.span("repro_torch.profile.next_batch",
+                              host_only=True):
+                    batch = next(stream, None)
+                if batch is None:
+                    break
+                res = self.classify_batch(batch.tokens, batch.lengths,
+                                          refdb=db, num_valid=batch.num_valid,
+                                          index=i)
+                n = res.num_valid
+                with obs.span("repro_torch.profile.d2h"):
+                    hits = res.classification.hits[:n].cpu().numpy()
+                    category = res.classification.category[:n].cpu().numpy()
+                with obs.span("repro_torch.profile.accumulate",
+                              host_only=True):
+                    acc.add(hits, category)
+                    self.note_host_transfers(2)   # hits + category to host
+                    if on_batch is not None:
+                        on_batch(res)
+            with obs.span("repro_torch.profile.finalize"):
+                return acc.finalize(db.genome_lengths.cpu().numpy(),
+                                    db.species_names)
 
     def note_host_transfers(self, n: int) -> None:
         """Count ``n`` device->host transfers against this session.

@@ -33,6 +33,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.genomics import fasta, synth
 
 
@@ -181,7 +182,9 @@ def prefetch(it: Iterator, depth: int = 2) -> Iterator:
     compute; exceptions from the producer re-raise at the consumer.  If
     the consumer abandons the stream early (error mid-profile, generator
     closed), the producer is signalled to stop and closes ``it`` — no
-    thread or file handle is left blocked on the full queue.
+    thread or file handle is left blocked on the full queue.  Under a
+    running profiler each item the producer draws from ``it`` is the span
+    ``repro_torch.source.batch`` on the producer's thread.
     """
     if depth <= 0:
         yield from it
@@ -201,7 +204,12 @@ def prefetch(it: Iterator, depth: int = 2) -> Iterator:
 
     def producer() -> None:
         try:
-            for item in it:
+            items = iter(it)
+            while True:
+                with obs.span("repro_torch.source.batch", host_only=True):
+                    item = next(items, done)
+                if item is done:
+                    break
                 if not put((None, item)):
                     return
         except BaseException as e:  # re-raised on the consumer side
