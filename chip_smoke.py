@@ -39,11 +39,19 @@ no result line):
              RefDB of a 20 species x 4,000,000 bp synthetic community
              (~9.8k prototypes, ~50 MB) and profiles 32,768 reads of 150 bp,
              with every kernel launch counter set to 0 just before and read
-             just after, then times ``WARM_RUNS`` more profiles (their median
+             just after (``species_max`` must count one launch a batch),
+             then times ``WARM_RUNS`` more profiles (their median
              is the end-to-end figure; the first run carries first-call
-             costs); then each kernel is timed and held against its
-             plain version at the shapes that run gave it, beside its
+             costs); then each kernel (the species max on the fused
+             kernel's agreement of a 256-read batch) is timed and held
+             against its plain version at the shapes that run gave it,
+             beside its
              bound (and, in the text line, its time before its current design, from PERF.md).
+             Then the species max's time alone (``species_max_phase``) at
+             the benchmark cells' shapes, 4,096 reads x 121,117 prototypes
+             of 31 species and x 29,300 of 20, against its plain
+             ``scatter_reduce_``,
+             with its byte bound and its share of it.
    search    the same reads through ``cuda_packed`` and ``cuda_matmul``
              sessions against phase 3's RefDB, each with the counters set
              to 0 just before and read just after: the encoder and the
@@ -3153,6 +3161,46 @@ def shard_worker(out_path: str) -> int:
 T_START = time.perf_counter()
 
 
+def species_max_phase(card: str) -> list[dict]:
+    """Time the species max at the benchmark cells' shapes: 4,096 reads
+    against 121,117 prototypes of 31 species (afs31) and 29,300 of 20
+    (afs20), the ids in runs as the RefDB builder makes them.  Holds the
+    kernel against its plain version bit for bit; prints ms a launch, the
+    byte bound (4 B P + 4 B S at HBM bandwidth), the share of it and the
+    plain ``scatter_reduce_``'s time.  The kernel's launch count and its
+    row of the ``kernels`` line come from the main path (``time_row``)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import species_max as sm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    out = []
+    for cell, b, p, s in (("afs31", 4096, 121_117, 31),
+                          ("afs20", 4096, 29_300, 20)):
+        agree = torch.randint(0, 40_001, (b, p), generator=g, device=dev,
+                              dtype=torch.int32)
+        ids = (torch.arange(p, device=dev) * s // p).to(torch.int32)
+        err = expect_equal(f"species_max {cell}",
+                           sm.species_max(agree, ids, s),
+                           sm.species_max_plain(agree, ids, s))
+        ms = cuda_time_ms(lambda: sm.species_max(agree, ids, s), reps=20)
+        plain_ms = cuda_time_ms(lambda: sm.species_max_plain(agree, ids, s),
+                                reps=2)
+        b_ms, _ = bound_ms(4 * b * p + 4 * b * s)
+        row = {"name": f"species_max.{cell}", "ms": ms, "bound_ms": b_ms,
+               "share_pct": 100 * b_ms / ms, "plain_ms": plain_ms,
+               "max_abs_err": err}
+        say(f"[time] species_max at {cell}'s shape (B={b}, P={p}, S={s}): "
+            f"{ms:.4f} ms/launch, bound {b_ms:.4f} ms by bytes "
+            f"({row['share_pct']:.1f} % of it); plain scatter_reduce_ "
+            f"{plain_ms:.2f} ms | {card}")
+        out.append(row)
+        del agree
+    return out
+
+
 def main() -> int:
     sweep = "--sweep" in sys.argv[1:]
     import torch
@@ -3170,7 +3218,7 @@ def main() -> int:
     from repro_torch.genomics import synth
     from repro_torch.kernels import (_build, _search, am_matmul,
                                      fused_profile, hamming_am, hdc_encoder,
-                                     ops, threefry)
+                                     ops, species_max, threefry)
     from repro_torch.pipeline import (ProfilerConfig, ProfilingSession,
                                       SyntheticSource)
 
@@ -3187,7 +3235,8 @@ def main() -> int:
                 "hamming_am": hamming_am.hamming_am,
                 "am_matmul_packed": am_matmul.am_matmul_packed,
                 "am_matmul": am_matmul.am_matmul,
-                "threefry": threefry.threefry_draw}
+                "threefry": threefry.threefry_draw,
+                "species_max": species_max.species_max}
 
     def zero_counts() -> None:
         torch.cuda.synchronize()
@@ -3339,7 +3388,9 @@ def main() -> int:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    report = session.profile(sample)
+    batches_run = []
+    report = session.profile(
+        sample, on_batch=lambda res: batches_run.append(res.index))
     torch.cuda.synchronize()
     profile_s = time.perf_counter() - t0
     launches = read_counts()
@@ -3349,6 +3400,9 @@ def main() -> int:
     say(f"[main] launches {json.dumps(launches)}")
     if min(launches["hdc_encoder"], launches["fused_profile"]) < 1:
         fail(f"main path skipped a kernel: {launches}")
+    if launches["species_max"] != len(batches_run):
+        fail(f"main path launched species_max {launches['species_max']} "
+             f"times for {len(batches_run)} batches: {launches}")
     m = score_profile(report.abundance, sample.true_abundance)
     say(f"[main] precision {m.precision:.3f} recall {m.recall:.3f} | "
         f"unmapped {report.unmapped_reads} multi {report.multi_reads} of "
@@ -3380,6 +3434,14 @@ def main() -> int:
             lambda: fused_profile.fused_profile_plain(
                 t_rd, l_rd, imr, tie, db.prototypes, dim=space.dim)),
     }
+    agree_rd = fused_profile.fused_profile(
+        t_rd, l_rd, imr, tie, db.prototypes, dim=space.dim,
+        **session.backend.tiles)
+    kern["species_max"] = (
+        lambda: species_max.species_max(agree_rd, db.proto_species,
+                                        db.num_species),
+        lambda: species_max.species_max_plain(agree_rd, db.proto_species,
+                                              db.num_species))
     s, b_rd = db.num_prototypes, t_rd.shape[0]
     work = {
         "hdc_encoder": bound_ms(
@@ -3391,6 +3453,7 @@ def main() -> int:
             + s * w * 4 + b_rd * s * 4,
             encoder_ops(sample.lengths[:256], n, w), 2 * b_rd * s * space.dim,
             tensor_rate=b1_rate, int_rate=int_rate),
+        "species_max": bound_ms(4 * b_rd * s + 4 * b_rd * db.num_species),
     }
     rows = []
     sources = {"hdc_encoder": ("src/repro_torch/csrc/hdc_encoder.cu",
@@ -3402,7 +3465,10 @@ def main() -> int:
                "am_matmul_packed": ("src/repro_torch/csrc/am_matmul.cu",
                                     "src/repro/kernels/am_matmul.py:31"),
                "am_matmul": ("src/repro_torch/csrc/am_matmul.cu",
-                             "src/repro/kernels/am_matmul.py:31")}
+                             "src/repro/kernels/am_matmul.py:31"),
+               "species_max": ("src/repro_torch/csrc/species_max.cu",
+                               "src/repro/core/assoc_memory.py:288 (XLA "
+                               "segment_max, no Pallas kernel)")}
 
     def time_row(name, kfn, pfn, bound, runs, library_ms=None) -> dict:
         errs[name] = max(errs[name], expect_equal(f"{name} main-path shape",
@@ -3447,6 +3513,11 @@ def main() -> int:
                     f"{ms:.3f} ms | {plan['tiles']} tiles x {plan['splits']} "
                     f"splits = {plan['tiles'] * plan['splits']} clusters, "
                     f"{active} fit at once")
+
+    sm_rows = species_max_phase(card)
+    note("3 species_max", ", ".join(
+        f"{r['name']} {r['ms']:.3f} ms ({r['share_pct']:.0f} % of its bound)"
+        for r in sm_rows))
 
     # -- 3b. the unfused search paths at full width -----------------------
     pm1_calls = [0]

@@ -18,6 +18,7 @@ from repro_torch import obs
 from repro_torch.core import bitops, encoder, item_memory
 from repro_torch.core.hd_space import HDSpace
 from repro_torch.device import resolve_device
+from repro_torch.kernels import species_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,17 +306,9 @@ def species_scores(agreement: torch.Tensor, proto_species: torch.Tensor,
 
     ``repro`` uses ``segment_max``: a species with no prototype comes back
     as the int32 minimum, and ids outside ``[0, num_species)`` (padding
-    rows) are dropped.  Here the dropped ids land in one spare column
-    that is cut off.  Under a running profiler the span
+    rows) are dropped.  On CUDA tensors this is the ``species_max`` kernel,
+    on CPU tensors its plain version.  Under a running profiler the span
     ``repro_torch.species_scores`` holds every kernel this launches.
     """
     with obs.span("repro_torch.species_scores"):
-        b = agreement.shape[0]
-        ids = proto_species.long()
-        ids = torch.where((ids < 0) | (ids >= num_species), num_species, ids)
-        out = torch.full((b, num_species + 1), torch.iinfo(torch.int32).min,
-                         dtype=torch.int32, device=agreement.device)
-        out.scatter_reduce_(1, ids[None, :].expand(b, -1),
-                            agreement.to(torch.int32), reduce="amax",
-                            include_self=True)
-        return out[:, :num_species]
+        return species_max.species_max(agreement, proto_species, num_species)

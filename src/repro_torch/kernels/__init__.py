@@ -7,6 +7,8 @@
   am_matmul      +-1 tensor-core search, on packed words
                  (``am_matmul_packed``) or +-1 bf16 (``am_matmul``)
                  (replaces the TPU ``am_matmul``).
+  species_max    the per-species max of the agreement (``repro`` leaves
+                 it to XLA's ``segment_max``).
   _search        the packed search entries' shared operand check.
   ops            session-level wrappers (``hdc_encode``, ``to_pm1``,
                  ``am_agreement``, ``fused_agreement``,

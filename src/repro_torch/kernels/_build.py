@@ -26,7 +26,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("hdc_encoder", "fused_profile", "hamming_am", "am_matmul",
-           "threefry")
+           "threefry", "species_max")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
