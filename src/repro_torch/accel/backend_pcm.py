@@ -36,6 +36,8 @@ recomputes the weights every batch.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from repro_torch import obs
@@ -94,11 +96,18 @@ class SubstrateBackend(_CudaKernelBackendBase):
             partitionable=config.threefry_partitionable)
         self._programmed: tuple[torch.Tensor, torch.Tensor,
                                 torch.Tensor] | None = None
+        #: Host seconds of the last programming event (ending in a
+        #: synchronize), or None before the first.
+        self.program_seconds: float | None = None
         prefix = self.name.removesuffix("_sim")
         self._obs = obs.resolve_metrics(None)
         self._m_prog_events = self._obs.counter(
             f"{prefix}_program_events_total",
             "Array programming events (prototype-array cache misses).")
+        self._m_prog_seconds = self._obs.histogram(
+            f"{prefix}_program_seconds",
+            "Host seconds to program both banks and cache their read "
+            "weights, ending in a synchronize.", unit="s")
         self._m_reads = self._obs.counter(
             f"{prefix}_reads_total", "AM read events (one per batch).")
         self._m_adc_clips = self._obs.counter(
@@ -119,12 +128,20 @@ class SubstrateBackend(_CudaKernelBackendBase):
 
     def program(self, prototypes: torch.Tensor) -> None:
         """Program the banks for ``prototypes`` unless they already hold
-        them (one programming event per distinct prototype tensor)."""
+        them (one programming event per distinct prototype tensor), and
+        time it in :attr:`program_seconds`; under a running
+        ``torch.profiler`` the span ``repro_torch.crossbar.program``."""
         if self._programmed is not None and self._programmed[0] is prototypes:
             return
         self._programmed = None                  # free the old banks first
-        self._programmed = (prototypes, *self._program(prototypes))
+        t0 = time.perf_counter()
+        with obs.span("repro_torch.crossbar.program"):
+            self._programmed = (prototypes, *self._program(prototypes))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.program_seconds = time.perf_counter() - t0
         if self._obs.enabled:
+            self._m_prog_seconds.observe(self.program_seconds)
             self._note_programmed(tuple(self._programmed[1].shape))
 
     @property

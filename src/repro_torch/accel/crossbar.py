@@ -19,8 +19,16 @@ computes outside any Pallas kernel.  It needs TF32 off on the card
 default, which the substrate backends set as the reference backend does.
 The read noise of
 all ``T`` tiles is drawn by the Threefry kernel straight into the partial
-counts (:meth:`Substrate.add_read_noise`), and the two banks are read one
-after the other, so at most one ``(T, B, S_pad)`` tensor is alive.
+counts (:meth:`Substrate.add_read_noise`).
+
+One read event runs over its row tiles in chunks, each chunk's ``(t, B,
+S_pad)`` partial counts under :data:`BLOCK_BYTES` (at D = 40,000 and
+29,440 columns all 157 tiles of a batch of 4,096 would take 75.7 GB), and
+the two banks are read one after the other, so one chunk's counts are
+alive at a time.  Each tile draws its noise with its own key over the
+whole batch, so chunking changes no element's noise, code or clip; with a
+lossless ADC the codes are whole counts and their float32 sum over the
+tiles is exact, so a chunked read equals the one-chunk read bit for bit.
 
 The ADC is behavioral: a per-tile count in ``[0, rows]`` is quantized to
 ``2**adc_bits - 1`` uniform steps, and with ``adc_bits >= log2(rows + 1)``
@@ -36,6 +44,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.accel.substrate import Substrate, draw_uniform
 from repro_torch.core import bitops, threefry
 from repro_torch.core.bitops import pad_to_multiple
@@ -103,36 +112,53 @@ def adc_quantize(count: torch.Tensor, cfg: CrossbarConfig) -> torch.Tensor:
     return code if step == 1.0 else code * np.float32(step).item()
 
 
+#: Bytes of one chunk's ``(t, B, S_pad)`` float32 partial counts: a read
+#: event runs over its row tiles in chunks under this cap.
+BLOCK_BYTES = 8 << 30
+
+
+def block_tiles(batch: int, s_pad: int) -> int:
+    """Row tiles in one chunk of a read event of ``batch`` queries over
+    ``s_pad`` columns (the last chunk may hold fewer)."""
+    return max(1, BLOCK_BYTES // (4 * batch * s_pad))
+
+
 def _bank_counts(qbits: torch.Tensor, wtiles: torch.Tensor, read_key,
                  xcfg: CrossbarConfig, substrate: Substrate, *,
-                 with_clips: bool = False):
-    """Analog partial-count readout of one bank, all tiles at once.
+                 clips: torch.Tensor | None = None) -> torch.Tensor:
+    """Analog partial-count readout of one bank, in chunks of
+    :func:`block_tiles` row tiles.
 
     Args:
       qbits: ``(T, B, rows)`` float32 query bits per row tile.
       wtiles: ``(T, S_pad, rows)`` float32 effective weights per row tile.
       read_key: key words of this bank's read event; tile ``t`` draws
         with ``split(read_key, T)[t]``, as ``repro``'s ``vmap`` does.
-      with_clips: also count the codes the converter clamped.
+      clips: a device scalar the codes the converter clamped are added
+        into, or None.
 
     Returns:
-      ``(B, S_pad)`` float32 accumulated (post-ADC) counts; with
-      ``with_clips`` a ``(counts, clip_count)`` pair.
+      ``(B, S_pad)`` float32 accumulated (post-ADC) counts.
     """
     levels, step = _adc_params(xcfg)
-    t = qbits.shape[0]
-    count = torch.bmm(qbits, wtiles.transpose(1, 2))        # (T, B, S_pad)
+    t, b, _ = qbits.shape
     keys = threefry.split(read_key, t, partitionable=substrate.partitionable)
-    substrate.add_read_noise(keys, count, qbits.sum(dim=-1))
-    code = _codes(count, step)
-    clips = None
-    if with_clips:
-        clips = int(((code < 0) | (code > levels)).sum())
-    code.clamp_(0, levels)
-    if step != 1.0:
-        code.mul_(np.float32(step).item())
-    out = code.sum(dim=0)
-    return (out, clips) if with_clips else out
+    span = block_tiles(b, wtiles.shape[1])
+    out = None
+    for t0 in range(0, t, span):
+        q = qbits[t0:t0 + span]
+        count = torch.bmm(q, wtiles[t0:t0 + span].transpose(1, 2))
+        substrate.add_read_noise(keys[t0:t0 + span], count, q.sum(dim=-1))
+        code = _codes(count, step)
+        if clips is not None:
+            clips += ((code < 0) | (code > levels)).sum()
+        code.clamp_(0, levels)
+        if step != 1.0:
+            code.mul_(np.float32(step).item())
+        part = code.sum(dim=0)
+        del count, code                  # free the chunk before the next
+        out = part if out is None else out.add_(part)
+    return out
 
 
 def _to_row_tiles(bits: torch.Tensor, rows: int) -> torch.Tensor:
@@ -174,23 +200,24 @@ def read_banks(queries: torch.Tensor, w_pos: torch.Tensor,
 
     ``(B, W)`` packed queries -> ``(B, S_pad)`` int32 agreement estimates
     clipped to ``[0, dim]``; with ``with_stats`` a ``(result, adc_clips)``
-    pair with the same result.  The banks are read one after the other.
+    pair with the same result.  The banks are read one after the other,
+    each in chunks of :func:`block_tiles` row tiles; under a running
+    ``torch.profiler`` the event is the span ``repro_torch.crossbar.read``.
     """
-    digest = batch_digest(queries)
-    qbits = bitops.unpack_bits(queries).to(torch.float32)       # (B, D)
-    total = None
-    clips = 0
-    for stream, (bits, weights) in enumerate(((qbits, w_pos),
-                                              (1.0 - qbits, w_neg))):
-        out = _bank_counts(_to_row_tiles(bits, xcfg.rows), weights,
-                           substrate.read_event_key(stream, digest), xcfg,
-                           substrate, with_clips=with_stats)
-        if with_stats:
-            out, k = out
-            clips += k
-        total = out if total is None else total.add_(out)
-    result = total.round_().clamp_(0, dim).to(torch.int32)
-    return (result, clips) if with_stats else result
+    with obs.span("repro_torch.crossbar.read"):
+        digest = batch_digest(queries)
+        qbits = bitops.unpack_bits(queries).to(torch.float32)   # (B, D)
+        clips = (torch.zeros((), dtype=torch.int64, device=qbits.device)
+                 if with_stats else None)
+        total = None
+        for stream, (bits, weights) in enumerate(((qbits, w_pos),
+                                                  (1.0 - qbits, w_neg))):
+            out = _bank_counts(_to_row_tiles(bits, xcfg.rows), weights,
+                               substrate.read_event_key(stream, digest),
+                               xcfg, substrate, clips=clips)
+            total = out if total is None else total.add_(out)
+        result = total.round_().clamp_(0, dim).to(torch.int32)
+        return (result, int(clips)) if with_stats else result
 
 
 def crossbar_read(queries: torch.Tensor, s_pos: torch.Tensor,
