@@ -135,11 +135,13 @@ no result line):
              (report equal to phase 3's); ``pcm_sim`` preset ``pcm`` and
              ``racetrack_sim`` preset ``racetrack`` (two profiles with one
              seed identical, another seed's agreement different; batch
-             0's read noise held against the plain version at the main
-             path's own inputs and timed; reads/s, ms a batch split into
-             bmm / noise / rest, fault census, ADC clips, precision and
-             recall; counters set to 0 just before each and read just
-             after: the encoder and ``threefry`` must launch); a noisy
+             0's ``crossbar_adc`` (read noise, ADC, tile sum) held bit for
+             bit against its plain version at the main path's own inputs
+             and timed; reads/s, ms a batch split into bmm / adc / rest,
+             fault census, ADC clips, precision and recall; counters set
+             to 0 just before each and read just after: the encoder and
+             ``threefry`` (programming) must launch, and ``crossbar_adc``
+             once a chunk and bank of every batch read); a noisy
              session on the card against the CPU (full D, 2 species x
              200 kbp, 256 reads, within the near-exact tolerance);
              ``noise_aware_refdb`` on ``racetrack_sim`` (validated no
@@ -1325,7 +1327,7 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
     from repro_torch.eval import score_profile
     from repro_torch.genomics import synth
     from repro_torch.core import threefry as threefry_core
-    from repro_torch.kernels import threefry
+    from repro_torch.kernels import crossbar_adc, threefry
     from repro_torch.pipeline import (ArraySource, ProfilerConfig,
                                       ProfilingSession, SyntheticSource)
 
@@ -1336,10 +1338,10 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
     # On 10 M draws a mode and epilogue, then at the main path's full width
     # in each mode: one bank's programming draws (one key, 408.9 M uniforms,
     # and 408.9 M normals scaled and added into the state as
-    # program_conductances adds them).  A batch's read noise is held at the
-    # main path's own inputs in 10.3.  Bits and uniforms must match
-    # exactly, normals within NORMAL_ULP; the kernels line's max_abs_err is
-    # the largest absolute gap of the normals held here and in 10.3.
+    # program_conductances adds them; the kernels line's threefry times are
+    # this partitionable draw's).  Bits and uniforms must match exactly,
+    # normals within NORMAL_ULP; the kernels line's max_abs_err is the
+    # largest absolute gap of the normals held here.
     rng = np.random.default_rng(1701)
     n_draw = 10_000_000
     t_tiles = -(-space.dim // 256)
@@ -1354,6 +1356,8 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
     pcm_dev = DeviceConfig.pcm()
     prog_scale = pcm_dev.prog_sigma * pcm_dev.level_spacing_us
     gaps = {}           # (mode, what) -> (max ulp, share differing, max abs)
+    kernel_row = {}     # the kernels line's threefry row (10.1)
+    adc_row = {}        # and its crossbar_adc row (10.3)
 
     def exact(what, part, m):
         for epi in ("bits", "uniform"):
@@ -1394,8 +1398,20 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
         g = (torch.randint(0, 2, (full,), device=dev, dtype=torch.float32)
              * f32(pcm_dev.g_window_us) + f32(pcm_dev.g_off_us))
         got = normal_into(key1, full, g.clone(), part, scale=prog_scale)
-        hold("program normal 408.9 M", part, got,
-             normal_into(key1, full, g, part, plain=True, scale=prog_scale))
+        want = g.clone()
+        plain_ms = cuda_time_ms(lambda: normal_into(
+            key1, full, want, part, plain=True, scale=prog_scale), reps=1,
+            warmup=0)
+        hold("program normal 408.9 M", part, got, want)
+        del want
+        torch.cuda.empty_cache()
+        if part:                             # the kernels line's times
+            ms = cuda_time_ms(lambda: normal_into(key1, full, got, part,
+                                                  scale=prog_scale), reps=5)
+            kernel_row.update(ms=ms, plain_ms=plain_ms, bound=bound_ms(
+                2 * full * 4, full * (THREEFRY_OPS_PER_PAIR
+                                      + THREEFRY_OPS_PER_WORD),
+                int_rate=int_rate))
         del g, got
         torch.cuda.empty_cache()
     say(f"[accel] threefry == plain, both modes: bits and uniforms 0 "
@@ -1415,7 +1431,7 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
         f"partitionable {times[True]:.3f} ms, original {times[False]:.3f} ms"
         f" | torch.randn {randn_ms:.3f} ms | {card}")
     b_rd = config.batch_size
-    kernel_row = {"library_ms": randn_ms}
+    kernel_row["library_ms"] = randn_ms
 
     # -- 10.2 pcm_sim at preset ideal == phase 3 --------------------------
     def substrate_session(backend, **options):
@@ -1429,10 +1445,10 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
                  f"products")
         return sess
 
-    def timed_profile(sess, source):
+    def timed_profile(sess, source, on_batch=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rep = sess.profile(source, refdb=db)
+        rep = sess.profile(source, refdb=db, on_batch=on_batch)
         torch.cuda.synchronize()
         return rep, time.perf_counter() - t0
 
@@ -1470,13 +1486,21 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         prog_s = program(sess)
-        rep1, secs = timed_profile(sess, sample)
+        batches = []
+        rep1, secs = timed_profile(
+            sess, sample, on_batch=lambda r: batches.append(r.index))
         runs = read_counts()
         peak = torch.cuda.max_memory_allocated()
         noisy_runs[backend] = runs
         if runs["hdc_encoder"] < 1 or runs["threefry"] < 1:
             fail(f"{backend} {preset} did not run the encoder and threefry "
                  f"kernels: {runs}")
+        # one crossbar_adc launch a chunk of row tiles and bank a batch
+        chunks = -(-t_tiles // crossbar.block_tiles(b_rd, s_pad))
+        if runs["crossbar_adc"] != 2 * chunks * len(batches):
+            fail(f"{backend} {preset}: {runs['crossbar_adc']} crossbar_adc "
+                 f"launches for {len(batches)} batches of {chunks} chunks "
+                 f"a bank")
         rep2, secs2 = timed_profile(sess, sample)
         if rep2.to_dict() != rep1.to_dict():
             fail(f"{backend} {preset}: two profiles with one seed differ")
@@ -1489,8 +1513,8 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
         if torch.equal(a_seed, a_other):
             fail(f"{backend} {preset}: another seed read the same agreement")
         del other
-        # ms a batch: the whole read, its two bank products, its two noise
-        # draws, and the rest (unpack, ADC, sums).
+        # ms a batch: the whole read, its two bank products, its two
+        # crossbar_adc launches (one chunk a bank at this batch), the rest.
         _, w_pos, w_neg = be._programmed
         xcfg, sub = be.crossbar_config, be.substrate
         read_ms = cuda_time_ms(lambda: crossbar.read_banks(
@@ -1501,52 +1525,54 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
         bmm_ms = cuda_time_ms(lambda: (torch.bmm(q_pos, w_pos.transpose(1, 2)),
                                        torch.bmm(q_neg, w_neg.transpose(1, 2))),
                               reps=5)
-        # Batch 0's read noise on the positive bank at the main path's own
-        # inputs (its partial counts, row-tile keys and active rows): the
-        # kernel against its plain version, then each timed.
+        # Batch 0's noise, ADC and tile sum on the positive bank at the main
+        # path's own inputs (its partial counts, row-tile keys and noise
+        # scale): the kernel against its plain version bit for bit (the ADC
+        # is lossless), clips included, then each timed.
         cnt = torch.bmm(q_pos, w_pos.transpose(1, 2))
         keys = threefry_core.split(
             sub.read_event_key(0, crossbar.batch_digest(q_first)), t_tiles,
             partitionable=sub.partitionable)
-        act = q_pos.sum(dim=-1)
-        noise_std, divisor = sub.read_noise_scale(act)
         ktens = threefry.keys_tensor(keys, dev)
+        noise_std, divisor = sub.read_noise_scale(q_pos.sum(dim=-1))
+        levels, step = crossbar._adc_params(xcfg)
+        kw = {"levels": levels, "step": step,
+              "partitionable": sub.partitionable}
+        clips_k, clips_p = (torch.zeros((), dtype=torch.int64, device=dev)
+                            for _ in range(2))
+        got = crossbar_adc.crossbar_adc(cnt, ktens, noise_std, divisor,
+                                        clips=clips_k, **kw)
+        work = cnt.clone()
+        plain_ms = cuda_time_ms(lambda: crossbar_adc.crossbar_adc_plain(
+            work, ktens, noise_std, divisor, clips=clips_p, **kw), reps=1,
+            warmup=0)
+        want = crossbar_adc.crossbar_adc_plain(
+            cnt.clone(), ktens, noise_std, divisor, **kw)
+        if not torch.equal(got, want) or int(clips_k) != int(clips_p):
+            fail(f"{backend}: crossbar_adc differs from its plain version in "
+                 f"{int((got != want).sum())} sums, clips {int(clips_k)} "
+                 f"against {int(clips_p)}")
+        del work, want
+        torch.cuda.empty_cache()
+        ms = cuda_time_ms(lambda: crossbar_adc.crossbar_adc(
+            cnt, ktens, noise_std, divisor, **kw), reps=10)
         words = b_rd * s_pad
-        kw = {"epilogue": "normal", "partitionable": sub.partitionable,
-              "scale": noise_std, "inner": s_pad, "divisor": divisor}
-        got = sub.add_read_noise(keys, cnt.clone(), act)
-        if not torch.equal(got, threefry.threefry_draw(
-                ktens, words, out=cnt.clone(), **kw)):
-            fail(f"{backend}: the read-noise call held here is not the main "
-                 f"path's")
-        want = cnt.clone()
-        torch.cuda.empty_cache()
-        plain_ms = cuda_time_ms(lambda: threefry.threefry_draw_plain(
-            ktens, words, out=want, **kw), reps=1, warmup=0)
-        what = f"{backend} read noise {t_tiles} x {b_rd} x {s_pad}"
-        hold(what, sub.partitionable, got, want)
-        del want
-        torch.cuda.empty_cache()
-        ms = cuda_time_ms(lambda: threefry.threefry_draw(
-            ktens, words, out=got, **kw), reps=10)
-        del got
         pairs = t_tiles * (words if sub.partitionable else -(-words // 2))
-        nbytes = (2 * t_tiles * words * 4 + noise_std.numel() * 4
+        nbytes = (t_tiles * words * 4 + words * 4 + noise_std.numel() * 4
                   + ktens.numel() * 4)
-        t_bound = bound_ms(nbytes, pairs * THREEFRY_OPS_PER_PAIR
+        a_bound = bound_ms(nbytes, pairs * THREEFRY_OPS_PER_PAIR
                            + t_tiles * words * THREEFRY_OPS_PER_WORD,
                            int_rate=int_rate)
         if backend == "pcm_sim":             # the kernels line's times
-            kernel_row.update(ms=ms, plain_ms=plain_ms, bound=t_bound)
-        say(f"[time] threefry read-noise epilogue, {backend} {preset} batch "
-            f"0, {t_tiles} keys x {b_rd} x {s_pad} (one bank): {ms:.3f} "
-            f"ms/launch (plain {plain_ms:.1f} ms, bound {t_bound[0]:.4f} ms "
-            f"by {t_bound[1]}; torch.randn of {full:,}: {randn_ms:.3f} ms) | "
-            f"held against plain: max ulp / share differing / max abs "
-            f"{' / '.join(f'{x:.3g}' for x in gaps[(sub.partitionable, what)])}"
-            f" | {card}")
-        noise_ms = cuda_time_ms(lambda: [sub.add_read_noise(keys, cnt, act)
-                                         for _ in range(2)], reps=5)
+            adc_row.update(ms=ms, plain_ms=plain_ms, bound=a_bound)
+        say(f"[time] crossbar_adc, {backend} {preset} batch 0, {t_tiles} "
+            f"tiles x {b_rd} x {s_pad} (one bank): {ms:.3f} ms/launch "
+            f"(plain {plain_ms:.1f} ms, bound {a_bound[0]:.4f} ms by "
+            f"{a_bound[1]}) | == plain bit for bit, {int(clips_k)} clips | "
+            f"{card}")
+        adc_ms = cuda_time_ms(lambda: [crossbar_adc.crossbar_adc(
+            cnt, ktens, noise_std, divisor, **kw) for _ in range(2)], reps=5)
+        del got
         del cnt, q_pos, q_neg, qbits
         _, clips = crossbar.read_banks(q_first, w_pos, w_neg, space.dim,
                                        xcfg, sub, with_stats=True)
@@ -1557,8 +1583,8 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
         say(f"[accel] {backend} {preset}: program {prog_s:.3f} s | profile "
             f"{secs:.3f} s ({NUM_READS / secs:.0f} reads/s), again "
             f"{secs2:.3f} s, report identical | a batch {read_ms:.2f} ms = "
-            f"bmm {bmm_ms:.2f} + noise {noise_ms:.2f} + rest "
-            f"{read_ms - bmm_ms - noise_ms:.2f} | max_memory_allocated "
+            f"bmm {bmm_ms:.2f} + adc {adc_ms:.2f} + rest "
+            f"{read_ms - bmm_ms - adc_ms:.2f} | max_memory_allocated "
             f"{peak / 1e9:.2f} GB | {card}")
         note("10 accel", f"{backend} {preset} {secs:.3f} s, a batch {read_ms:.2f} ms")
         say(f"[accel] {backend} {preset}: another seed's agreement differs "
@@ -1690,19 +1716,24 @@ def accel_phase(*, config, sample, db, main_report, card, int_rate,
         + " | ".join(p.row() for p in points) + f" | {card}")
 
     runs = noisy_runs["pcm_sim"]
-    b_ms, b_by = kernel_row["bound"]
-    row = {"name": "threefry", "route": "cuda",
-           "source": "src/repro_torch/csrc/threefry.cu",
-           "replaces": "src/repro/accel/crossbar.py:142",
-           "launches": runs["threefry"],
-           "max_abs_err": max(g[2] for g in gaps.values()),
-           "ms": kernel_row["ms"], "plain_ms": kernel_row["plain_ms"],
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": kernel_row["library_ms"]}
-    rows.append(row)
-    say(f"[accel] threefry launches, program + profile of {NUM_READS} "
-        f"reads: pcm_sim pcm {runs['threefry']}, racetrack_sim racetrack "
-        f"{noisy_runs['racetrack_sim']['threefry']} | {card}")
+    for name, source, replaces, t_row, err in (
+            ("threefry", "src/repro_torch/csrc/threefry.cu",
+             "src/repro/accel/crossbar.py:142", kernel_row,
+             max(g[2] for g in gaps.values())),
+            ("crossbar_adc", "src/repro_torch/csrc/crossbar_adc.cu",
+             "src/repro/accel/crossbar.py:132 (jax.random and XLA, no "
+             "Pallas kernel)", adc_row, 0.0)):
+        b_ms, b_by = t_row["bound"]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": runs[name],
+                     "max_abs_err": err, "ms": t_row["ms"],
+                     "plain_ms": t_row["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by,
+                     "library_ms": t_row.get("library_ms")})
+    say(f"[accel] launches, program + profile of {NUM_READS} reads: "
+        + ", ".join(f"{be_name} threefry {r['threefry']} crossbar_adc "
+                    f"{r['crossbar_adc']}" for be_name, r in
+                    noisy_runs.items()) + f" | {card}")
 
 
 def baselines_phase(*, sample, small, db, card, zero_counts,
@@ -3217,8 +3248,8 @@ def main() -> int:
     from repro_torch.eval import score_profile
     from repro_torch.genomics import synth
     from repro_torch.kernels import (_build, _search, am_matmul,
-                                     fused_profile, hamming_am, hdc_encoder,
-                                     ops, species_max, threefry)
+                                     crossbar_adc, fused_profile, hamming_am,
+                                     hdc_encoder, ops, species_max, threefry)
     from repro_torch.pipeline import (ProfilerConfig, ProfilingSession,
                                       SyntheticSource)
 
@@ -3236,7 +3267,8 @@ def main() -> int:
                 "am_matmul_packed": am_matmul.am_matmul_packed,
                 "am_matmul": am_matmul.am_matmul,
                 "threefry": threefry.threefry_draw,
-                "species_max": species_max.species_max}
+                "species_max": species_max.species_max,
+                "crossbar_adc": crossbar_adc.crossbar_adc}
 
     def zero_counts() -> None:
         torch.cuda.synchronize()

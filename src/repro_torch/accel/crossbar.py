@@ -17,15 +17,17 @@ rows, S_pad)`` tiles -- a plain batched float32 product, which JAX also
 computes outside any Pallas kernel.  It needs TF32 off on the card
 (noisy weights are not integers, and TF32 would round them): PyTorch's
 default, which the substrate backends set as the reference backend does.
-The read noise of
-all ``T`` tiles is drawn by the Threefry kernel straight into the partial
-counts (:meth:`Substrate.add_read_noise`).
+Each chunk's read noise, ADC and sum over its tiles are one pass of the
+``crossbar_adc`` kernel over the chunk's partial counts
+(:func:`repro_torch.kernels.crossbar_adc.crossbar_adc`), with the noise
+scale the substrate gives (:meth:`Substrate.read_noise_scale`).
 
 One read event runs over its row tiles in chunks, each chunk's ``(t, B,
 S_pad)`` partial counts under :data:`BLOCK_BYTES` (at D = 40,000 and
 29,440 columns all 157 tiles of a batch of 4,096 would take 75.7 GB), and
 the two banks are read one after the other, so one chunk's counts are
-alive at a time.  Each tile draws its noise with its own key over the
+alive at a time.  Both banks' tile keys reach the card in one copy after
+the batch digest.  Each tile draws its noise with its own key over the
 whole batch, so chunking changes no element's noise, code or clip; with a
 lossless ADC the codes are whole counts and their float32 sum over the
 tiles is exact, so a chunked read equals the one-chunk read bit for bit.
@@ -48,6 +50,8 @@ from repro_torch import obs
 from repro_torch.accel.substrate import Substrate, draw_uniform
 from repro_torch.core import bitops, threefry
 from repro_torch.core.bitops import pad_to_multiple
+from repro_torch.kernels import threefry as threefry_kernel
+from repro_torch.kernels.crossbar_adc import adc_codes, crossbar_adc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,20 +99,12 @@ def _adc_params(cfg: CrossbarConfig) -> tuple[int, float]:
     return levels, step
 
 
-def _codes(count: torch.Tensor, step: float) -> torch.Tensor:
-    """``round(count / step)`` in place (``count`` is consumed); a step of
-    exactly one count divides nothing."""
-    if step != 1.0:
-        count = count.div_(torch.tensor(np.float32(step),
-                                        device=count.device))
-    return count.round_()
-
-
 def adc_quantize(count: torch.Tensor, cfg: CrossbarConfig) -> torch.Tensor:
     """Digitize an analog per-tile match count to the ADC's level grid:
     ``clip(round(count / step), 0, levels) * step``."""
     levels, step = _adc_params(cfg)
-    code = _codes(count.to(torch.float32).clone(), step).clamp_(0, levels)
+    code = adc_codes(count.to(torch.float32).clone(), step)
+    code = code.clamp_(0, levels)
     return code if step == 1.0 else code * np.float32(step).item()
 
 
@@ -123,41 +119,41 @@ def block_tiles(batch: int, s_pad: int) -> int:
     return max(1, BLOCK_BYTES // (4 * batch * s_pad))
 
 
-def _bank_counts(qbits: torch.Tensor, wtiles: torch.Tensor, read_key,
-                 xcfg: CrossbarConfig, substrate: Substrate, *,
-                 clips: torch.Tensor | None = None) -> torch.Tensor:
+def _bank_counts(qbits: torch.Tensor, wtiles: torch.Tensor,
+                 keys: torch.Tensor, xcfg: CrossbarConfig,
+                 substrate: Substrate, *, out: torch.Tensor | None,
+                 clips: torch.Tensor | None) -> torch.Tensor:
     """Analog partial-count readout of one bank, in chunks of
-    :func:`block_tiles` row tiles.
+    :func:`block_tiles` row tiles, each chunk's noise, ADC and tile sum
+    added into ``out`` by :func:`crossbar_adc`.
 
     Args:
       qbits: ``(T, B, rows)`` float32 query bits per row tile.
       wtiles: ``(T, S_pad, rows)`` float32 effective weights per row tile.
-      read_key: key words of this bank's read event; tile ``t`` draws
-        with ``split(read_key, T)[t]``, as ``repro``'s ``vmap`` does.
+      keys: ``(T, 2)`` int32 key words of this bank's read event on the
+        queries' device; tile ``t`` draws with ``split(read_key, T)[t]``,
+        as ``repro``'s ``vmap`` does.
+      out: the event's ``(B, S_pad)`` float32 sum so far, or None before
+        its first chunk.
       clips: a device scalar the codes the converter clamped are added
         into, or None.
 
     Returns:
-      ``(B, S_pad)`` float32 accumulated (post-ADC) counts.
+      ``out`` with this bank's accumulated (post-ADC) counts added.
     """
     levels, step = _adc_params(xcfg)
     t, b, _ = qbits.shape
-    keys = threefry.split(read_key, t, partitionable=substrate.partitionable)
+    std, divisor = substrate.read_noise_scale(qbits.sum(dim=-1))
     span = block_tiles(b, wtiles.shape[1])
-    out = None
     for t0 in range(0, t, span):
-        q = qbits[t0:t0 + span]
-        count = torch.bmm(q, wtiles[t0:t0 + span].transpose(1, 2))
-        substrate.add_read_noise(keys[t0:t0 + span], count, q.sum(dim=-1))
-        code = _codes(count, step)
-        if clips is not None:
-            clips += ((code < 0) | (code > levels)).sum()
-        code.clamp_(0, levels)
-        if step != 1.0:
-            code.mul_(np.float32(step).item())
-        part = code.sum(dim=0)
-        del count, code                  # free the chunk before the next
-        out = part if out is None else out.add_(part)
+        count = torch.bmm(qbits[t0:t0 + span],
+                          wtiles[t0:t0 + span].transpose(1, 2))
+        out = crossbar_adc(count, keys[t0:t0 + span],
+                           None if std is None else std[t0:t0 + span],
+                           divisor, levels=levels, step=step,
+                           partitionable=substrate.partitionable, out=out,
+                           clips=clips)
+        del count                        # free the chunk before the next
     return out
 
 
@@ -201,21 +197,27 @@ def read_banks(queries: torch.Tensor, w_pos: torch.Tensor,
     ``(B, W)`` packed queries -> ``(B, S_pad)`` int32 agreement estimates
     clipped to ``[0, dim]``; with ``with_stats`` a ``(result, adc_clips)``
     pair with the same result.  The banks are read one after the other,
-    each in chunks of :func:`block_tiles` row tiles; under a running
-    ``torch.profiler`` the event is the span ``repro_torch.crossbar.read``.
+    each in chunks of :func:`block_tiles` row tiles, into one sum; both
+    banks' tile keys reach the card in one copy after the digest's
+    synchronize.  Under a running ``torch.profiler`` the event is the span
+    ``repro_torch.crossbar.read``.
     """
     with obs.span("repro_torch.crossbar.read"):
         digest = batch_digest(queries)
+        tiles = w_pos.shape[0]
+        keys = threefry_kernel.keys_tensor(np.stack([
+            threefry.split(substrate.read_event_key(stream, digest), tiles,
+                           partitionable=substrate.partitionable)
+            for stream in (0, 1)]), queries.device).reshape(2, tiles, 2)
         qbits = bitops.unpack_bits(queries).to(torch.float32)   # (B, D)
         clips = (torch.zeros((), dtype=torch.int64, device=qbits.device)
                  if with_stats else None)
         total = None
         for stream, (bits, weights) in enumerate(((qbits, w_pos),
                                                   (1.0 - qbits, w_neg))):
-            out = _bank_counts(_to_row_tiles(bits, xcfg.rows), weights,
-                               substrate.read_event_key(stream, digest),
-                               xcfg, substrate, clips=clips)
-            total = out if total is None else total.add_(out)
+            total = _bank_counts(_to_row_tiles(bits, xcfg.rows), weights,
+                                 keys[stream], xcfg, substrate, out=total,
+                                 clips=clips)
         result = total.round_().clamp_(0, dim).to(torch.int32)
         return (result, int(clips)) if with_stats else result
 

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.accel import substrate as _sub
@@ -208,9 +207,9 @@ def bitline_read_noise(key, shape: tuple[int, ...],
                        ) -> torch.Tensor:
     """Per-read current noise at the bit line (uS-equivalent):
     ``std * normal(key, shape)`` with ``active_rows`` broadcast against
-    ``shape``; zeros when ``read_sigma == 0``.  (The crossbar adds the
-    noise of all row tiles at once through :meth:`PCMSubstrate
-    .add_read_noise`; this is the one-event form.)"""
+    ``shape``; zeros when ``read_sigma == 0``.  (The crossbar draws the
+    noise of every row tile inside its ``crossbar_adc`` kernel, scaled by
+    :meth:`PCMSubstrate.read_noise_scale`; this is the one-event form.)"""
     noise = torch.zeros(shape, dtype=torch.float32,
                         device=active_rows.device)
     if cfg.read_sigma == 0.0:
@@ -303,21 +302,16 @@ class PCMSubstrate:
         return read_event_key(self.config, stream, digest)
 
     def read_noise_scale(self, active_rows: torch.Tensor
-                         ) -> tuple[torch.Tensor, float]:
+                         ) -> tuple[torch.Tensor | None, float]:
         """``(std, divisor)`` of a read's noise: ``std * normal / divisor``
         counts (the bit-line current noise through the same calibration
-        divide and window normalization the signal sees)."""
+        divide and window normalization the signal sees); no std at
+        ``read_sigma`` 0."""
         cfg = self.config
-        return (bitline_read_std(active_rows, cfg),
-                f32(self._calibration_divisor * cfg.g_window_us))
-
-    def add_read_noise(self, keys: np.ndarray, counts: torch.Tensor,
-                       active_rows: torch.Tensor) -> torch.Tensor:
-        if self.config.read_sigma == 0.0:
-            return counts
-        return _sub.add_tile_read_noise(
-            keys, counts, *self.read_noise_scale(active_rows),
-            self.partitionable)
+        divisor = f32(self._calibration_divisor * cfg.g_window_us)
+        if cfg.read_sigma == 0.0:
+            return None, divisor
+        return bitline_read_std(active_rows, cfg), divisor
 
     def fault_census(self, shape: tuple[int, ...], *, stream: int = 0,
                      device: str | torch.device = "cpu") -> dict[str, int]:

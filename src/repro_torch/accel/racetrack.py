@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.accel import substrate as _sub
@@ -182,19 +181,14 @@ class RacetrackSubstrate:
         return threefry.fold_in(_key(self.config, stream, _READ), digest)
 
     def read_noise_scale(self, active_rows: torch.Tensor
-                         ) -> tuple[torch.Tensor, float]:
+                         ) -> tuple[torch.Tensor | None, float]:
         """``(std, divisor)`` of a read's noise, already in count units:
-        ``read_sigma * sqrt(active domains)`` over one."""
+        ``read_sigma * sqrt(active domains)`` over one; no std at
+        ``read_sigma`` 0."""
+        if self.config.read_sigma == 0.0:
+            return None, 1.0
         return f32(self.config.read_sigma) * torch.sqrt(
             torch.clamp_min(active_rows.to(torch.float32), 0.0)), 1.0
-
-    def add_read_noise(self, keys: np.ndarray, counts: torch.Tensor,
-                       active_rows: torch.Tensor) -> torch.Tensor:
-        if self.config.read_sigma == 0.0:
-            return counts
-        return _sub.add_tile_read_noise(
-            keys, counts, *self.read_noise_scale(active_rows),
-            self.partitionable)
 
     def fault_census(self, shape: tuple[int, ...], *, stream: int = 0,
                      device: str | torch.device = "cpu") -> dict[str, int]:

@@ -9,18 +9,19 @@ everything device-physical lives behind them:
   ``read_weights(state, stream)``  the effective per-cell weight an AM
                                    read sees (ideal: exactly the bits);
   ``read_event_key(stream, digest)``  the key of one read event;
-  ``add_read_noise(keys, counts, active_rows)``  the read event's noise,
-                                   in count units, added into the partial
-                                   counts of every row tile at once;
+  ``read_noise_scale(active_rows)``  ``(std, divisor)`` of a read's noise
+                                   in count units, ``std * normal /
+                                   divisor`` (std None: no read noise);
   ``fault_census(shape, stream)``  static defect counts of a bank;
   ``cost(...)``                    the analytical latency/energy/area entry.
 
 One hook differs from ``repro``'s: ``repro``'s ``read_noise(key, shape,
 active_rows)`` returns one tile's noise, which the crossbar adds inside a
-``vmap`` over the row tiles; here ``add_read_noise`` takes the ``(T, 2)``
-tile keys (``repro``'s ``jax.random.split(read_key, T)``) and adds every
-tile's noise into the ``(T, B, S)`` counts in place, through the Threefry
-kernel's read-noise epilogue, so no ``(T, B, S)`` noise tensor is made.
+``vmap`` over the row tiles; here ``read_noise_scale`` gives only the
+noise's scale, and the crossbar draws the normals of every tile (keyed
+by ``repro``'s ``jax.random.split(read_key, T)``) inside the kernel that
+digitizes and sums the partial counts, so no ``(T, B, S)`` noise tensor is
+made.
 
 Substrates register by name with their declared options (the
 :class:`~repro_torch.pipeline.options.Option` rows every backend's options
@@ -73,11 +74,11 @@ class Substrate(Protocol):
         """The key words of one read event on one bank."""
         ...
 
-    def add_read_noise(self, keys: np.ndarray, counts: torch.Tensor,
-                       active_rows: torch.Tensor) -> torch.Tensor:
-        """Add one read event's noise to the ``(T, B, S)`` partial counts
-        in place (``keys``: ``(T, 2)``, one a row tile; ``active_rows``:
-        ``(T, B)``); returns ``counts``."""
+    def read_noise_scale(self, active_rows: torch.Tensor
+                         ) -> tuple[torch.Tensor | None, float]:
+        """``(std, divisor)`` of a read's noise in count units, ``std *
+        normal / divisor`` (``active_rows`` and ``std``: ``(T, B)``, one a
+        row tile and query); ``std`` is None when reads are noiseless."""
         ...
 
     def fault_census(self, shape: tuple[int, ...], *, stream: int = 0,
@@ -224,18 +225,3 @@ def add_normal(key, out: torch.Tensor, scale: float, partitionable: bool
                                   partitionable=partitionable, scale=scale,
                                   out=out)
     return out
-
-
-def add_tile_read_noise(keys: np.ndarray, counts: torch.Tensor,
-                        std: torch.Tensor, divisor: float,
-                        partitionable: bool) -> torch.Tensor:
-    """``counts[t] += (std[t] * normal(keys[t], (B, S))) / divisor`` for
-    every row tile ``t``, in place (``std``: ``(T, B)``)."""
-    t, b, s = counts.shape
-    if counts.numel() == 0:
-        return counts
-    ktens = threefry_kernel.keys_tensor(keys, counts.device)
-    threefry_kernel.threefry_draw(
-        ktens, b * s, epilogue="normal", partitionable=partitionable,
-        scale=std.contiguous(), inner=s, divisor=divisor, out=counts)
-    return counts
