@@ -6,15 +6,22 @@
 (``repro.accel``) draws programming noise, fault maps and read noise
 through ``fold_in``, ``split``, ``uniform`` and ``normal``.  The port must
 reproduce those draws, or it could neither query a RefDB that ``repro``
-built nor simulate the device ``repro`` simulates.  Two implementations
-of the same arithmetic live here:
+built nor simulate the device ``repro`` simulates.
 
-numpy ``uint32`` (wrapping arithmetic, host side; keys and the item
-memory, a few KB):
+One implementation does the arithmetic, in torch on ``int64`` tensors
+holding 32-bit words (any device; the plain versions of the Threefry
+kernel, :mod:`repro_torch.kernels.threefry`), each function drawing one
+row of ``m`` values for each of ``N`` keys:
 
-* :func:`threefry2x32` -- the 20-round Threefry-2x32 block function with
+* :func:`threefry2x32_t` -- the 20-round Threefry-2x32 block function with
   rotations ``(13, 15, 26, 6)`` / ``(17, 29, 16, 24)`` and key-schedule
   parity ``0x1BD11BDA``;
+* :func:`bits_rows`, :func:`uniform_rows`, :func:`normal_rows`, and
+  :func:`erf_inv` (XLA's float32 ``ErfInv``).
+
+The key-level functions run it on the host and hand back numpy: a key is
+a pair of ``uint32`` words, draws are ``uint32`` or ``float32`` arrays.
+
 * :func:`key` -- ``jax.random.key(seed)`` under JAX's default 32-bit
   mode: the key words are ``(0, seed mod 2**32)``;
 * :func:`fold_in` -- ``jax.random.fold_in(key, data)``: the key is the
@@ -24,13 +31,6 @@ memory, a few KB):
 * :func:`uniform` -- ``jax.random.uniform(key, shape, float32, minval,
   maxval)``;
 * :func:`normal` -- ``jax.random.normal(key, shape, float32)``.
-
-torch (``int64`` holding 32-bit words, any device; the plain versions of
-the Threefry kernel, :mod:`repro_torch.kernels.threefry`), each drawing
-one row of ``m`` values for each of ``N`` keys:
-
-* :func:`threefry2x32_t`, :func:`bits_rows`, :func:`uniform_rows`,
-  :func:`normal_rows`, and :func:`erf_inv` (XLA's float32 ``ErfInv``).
 
 Bits and uniforms are exact.  ``normal`` is ``sqrt(2) * erf_inv(u)`` with
 ``u = uniform(key, shape, nextafter(-1, 0), 1)``, and ``erf_inv`` is
@@ -60,53 +60,37 @@ import numpy as np
 import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_PARITY = np.uint32(0x1BD11BDA)
+_PARITY = 0x1BD11BDA
+_M32 = 0xFFFFFFFF
 
 #: ``jax_threefry_partitionable``'s default from jax 0.5 on.
 PARTITIONABLE = True
 
 
-def _rotl(x: np.ndarray, d: int) -> np.ndarray:
-    return (x << np.uint32(d)) | (x >> np.uint32(32 - d))
-
-
-def threefry2x32(k0, k1, x0: np.ndarray, x1: np.ndarray
-                 ) -> tuple[np.ndarray, np.ndarray]:
-    """Threefry-2x32 (20 rounds) of the counter pairs ``(x0, x1)``."""
-    ks = (np.uint32(k0), np.uint32(k1),
-          np.uint32(k0) ^ np.uint32(k1) ^ _PARITY)
-    x0 = np.asarray(x0, np.uint32) + ks[0]
-    x1 = np.asarray(x1, np.uint32) + ks[1]
-    for step in range(5):
-        for r in _ROTATIONS[step % 2]:
-            x0 = x0 + x1
-            x1 = _rotl(x1, r) ^ x0
-        x0 = x0 + ks[(step + 1) % 3]
-        x1 = x1 + ks[(step + 2) % 3] + np.uint32(step + 1)
-    return x0, x1
-
-
 def key(seed: int) -> tuple[np.uint32, np.uint32]:
     """The key words of ``jax.random.key(seed)`` (default 32-bit mode)."""
-    return np.uint32(0), np.uint32(int(seed) & 0xFFFFFFFF)
+    return np.uint32(0), np.uint32(int(seed) & _M32)
+
+
+def _hash(k, x0, x1):
+    """:func:`threefry2x32_t` of the counters (ints or ``int64`` tensors)
+    under the key pair ``k``."""
+    return threefry2x32_t(int(k[0]) & _M32, int(k[1]) & _M32, x0, x1)
+
+
+def _row(draw, k, shape: tuple[int, ...], **kw) -> np.ndarray:
+    """One row of ``draw`` (:func:`bits_rows` and kin) under the key pair
+    ``k``, shaped ``shape``."""
+    size = int(np.prod(shape, dtype=np.int64))
+    keys = torch.tensor([[int(k[0]), int(k[1])]], dtype=torch.int64)
+    return draw(keys, size, **kw)[0].numpy().reshape(shape)
 
 
 def random_bits(k: tuple[np.uint32, np.uint32], shape: tuple[int, ...], *,
                 partitionable: bool = PARTITIONABLE) -> np.ndarray:
     """``jax.random.bits(key, shape, dtype=uint32)`` as numpy ``uint32``."""
-    size = int(np.prod(shape, dtype=np.int64))
-    if size >= 2 ** 32:
-        raise NotImplementedError("more than 2**32 random words")
-    with np.errstate(over="ignore"):
-        if partitionable:
-            lo = np.arange(size, dtype=np.uint32)
-            b0, b1 = threefry2x32(k[0], k[1], np.zeros_like(lo), lo)
-            return (b0 ^ b1).reshape(shape)
-        counts = np.arange(size + (size % 2), dtype=np.uint32)
-        counts[size:] = 0                  # odd sizes pad one zero counter
-        half = len(counts) // 2
-        b0, b1 = threefry2x32(k[0], k[1], counts[:half], counts[half:])
-        return np.concatenate([b0, b1])[:size].reshape(shape)
+    return _row(bits_rows, k, shape,
+                partitionable=partitionable).astype(np.uint32)
 
 
 def fold_in(k: tuple[np.uint32, np.uint32], data: int
@@ -116,10 +100,8 @@ def fold_in(k: tuple[np.uint32, np.uint32], data: int
     The same in both threefry modes: jax hashes the counter pair
     ``(0, data)`` (``threefry_seed(data)``) under ``key``.
     """
-    with np.errstate(over="ignore"):
-        o0, o1 = threefry2x32(k[0], k[1], np.zeros(1, np.uint32),
-                              np.array([int(data) & 0xFFFFFFFF], np.uint32))
-    return np.uint32(o0[0]), np.uint32(o1[0])
+    o0, o1 = _hash(k, 0, int(data) & _M32)
+    return np.uint32(o0), np.uint32(o1)
 
 
 def split(k: tuple[np.uint32, np.uint32], num: int, *,
@@ -131,21 +113,12 @@ def split(k: tuple[np.uint32, np.uint32], num: int, *,
     the halves ``(i, num + i)`` and the words ``concat(out0, out1)`` are
     read off two at a time.
     """
-    with np.errstate(over="ignore"):
-        if partitionable:
-            lo = np.arange(num, dtype=np.uint32)
-            o0, o1 = threefry2x32(k[0], k[1], np.zeros_like(lo), lo)
-            return np.stack([o0, o1], axis=1)
-        counts = np.arange(2 * num, dtype=np.uint32)
-        o0, o1 = threefry2x32(k[0], k[1], counts[:num], counts[num:])
-        return np.concatenate([o0, o1]).reshape(num, 2)
-
-
-def _unit_floats(bits: np.ndarray) -> np.ndarray:
-    """JAX's float construction: the 23 high bits of each word become the
-    mantissa of a float in ``[1, 2)``, from which 1 is subtracted."""
-    return ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(
-        np.float32) - np.float32(1.0)
+    i = torch.arange(num, dtype=torch.int64)
+    if partitionable:
+        o = torch.stack(_hash(k, torch.zeros_like(i), i), dim=1)
+    else:
+        o = torch.cat(_hash(k, i, i + num)).reshape(num, 2)
+    return o.numpy().astype(np.uint32)
 
 
 def uniform(k: tuple[np.uint32, np.uint32], shape: tuple[int, ...], *,
@@ -154,26 +127,19 @@ def uniform(k: tuple[np.uint32, np.uint32], shape: tuple[int, ...], *,
     """``jax.random.uniform(key, shape, float32, minval, maxval)``:
     ``max(minval, floats * (maxval - minval) + minval)`` in float32, the
     multiply-add fused as XLA fuses it (see :func:`uniform_rows`)."""
-    lo, hi = np.float32(minval), np.float32(maxval)
-    floats = _unit_floats(random_bits(k, shape, partitionable=partitionable))
-    fused = (floats.astype(np.float64) * np.float64(hi - lo)
-             + np.float64(lo)).astype(np.float32)
-    return np.maximum(lo, fused)
+    return _row(uniform_rows, k, shape, minval=minval, maxval=maxval,
+                partitionable=partitionable)
 
 
 def normal(k: tuple[np.uint32, np.uint32], shape: tuple[int, ...], *,
            partitionable: bool = PARTITIONABLE) -> np.ndarray:
     """``jax.random.normal(key, shape, float32)`` (within a few ulp; see
-    the module note), through :func:`normal_rows` on the host."""
-    size = int(np.prod(shape, dtype=np.int64))
-    keys = torch.tensor([[int(k[0]), int(k[1])]], dtype=torch.int64)
-    return normal_rows(keys, size, partitionable=partitionable)[0].numpy(
-    ).reshape(shape)
+    the module note)."""
+    return _row(normal_rows, k, shape, partitionable=partitionable)
 
 
 # -- torch: N independent rows, one per key (the kernel's plain version) -----
 
-_M32 = 0xFFFFFFFF
 #: ``nextafter(-1, 0)`` in float32: the low end of ``normal``'s uniforms.
 NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
@@ -193,9 +159,10 @@ def _rotl_t(x: torch.Tensor, d: int) -> torch.Tensor:
 
 def threefry2x32_t(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
                    x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`threefry2x32` on ``int64`` tensors holding 32-bit words
-    (keys broadcast against the counters)."""
-    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    """Threefry-2x32 (20 rounds) of the counter pairs ``(x0, x1)``: 32-bit
+    words held in ``int64`` tensors, broadcast together, or in Python ints
+    (one pair, as :func:`fold_in` hashes it)."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + k0) & _M32
     x1 = (x1 + k1) & _M32
     for step in range(5):

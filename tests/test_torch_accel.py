@@ -49,17 +49,6 @@ MODE = bool(jax.config.jax_threefry_partitionable)
 NEAR_EXACT_SHARE = 2e-4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These cases run many small tensor ops: one intra-op thread is as
-    fast alone and keeps parallel test workers from oversubscribing the
-    host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _config(**kw):
     kw.setdefault("space", HDSpace(**SP))
     kw.setdefault("window", 1024)

@@ -29,15 +29,6 @@ from repro_torch.train import train_step as ts
 ARCHS = ["stablelm-3b", "deepseek-v2-lite-16b"]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _state(arch: str, dtype: str) -> ts.TrainState:
     """The smoke config's state after one train step (moments not 0)."""
     cfg = dataclasses.replace(get_config(arch, smoke=True),

@@ -38,17 +38,6 @@ SP = dict(dim=512, ngram=5, z_threshold=3.0)
 MODE = bool(jax.config.jax_threefry_partitionable)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These cases run many small tensor ops: one intra-op thread is as
-    fast alone and keeps parallel test workers from oversubscribing the
-    host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _config(backend="racetrack_sim", **options):
     return ProfilerConfig(space=HDSpace(**SP), window=512, batch_size=32,
                           backend=backend, backend_options=options,

@@ -23,15 +23,6 @@ DTYPES = {"float32": (torch.float32, jnp.float32),
 B, S, DH = 2, 3, 4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _index_pad(q, k, v, plan):
     """The index form: ``qp[..., slots, :] = q``."""
     hp, kvp, slots = plan

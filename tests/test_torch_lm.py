@@ -43,16 +43,6 @@ MOE_ARCHS = [a for a in all_archs() if get_config(a, smoke=True).moe]
 SSM_ARCHS = [a for a in all_archs() if get_config(a, smoke=True).ssm]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Many small ops: one intra-op thread is as fast alone and keeps the
-    suite's parallel workers from oversubscribing the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @functools.lru_cache(maxsize=None)
 def _models(arch: str, dtype: str = "float32", seed: int = 0):
     """``repro``'s smoke model and the port's with the same weights."""

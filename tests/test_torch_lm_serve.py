@@ -50,14 +50,6 @@ BF16_TOL = dict(atol=0.125, rtol=0.0)
 SERVE_ARCHS = [a for a in all_archs() if not get_config(a).is_encdec]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(params=[True, False], ids=["partitionable", "original"])
 def mode(request):
     """Set ``jax_threefry_partitionable`` for one test, then restore it."""

@@ -49,14 +49,6 @@ SPACE = dict(dim=2048, ngram=8, z_threshold=3.0)
 WINDOW, SPECIES, GENOME, BATCH = 256, 4, 13_000, 64
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def community():
     rng = np.random.default_rng(2027)

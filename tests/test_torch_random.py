@@ -24,17 +24,6 @@ from repro_torch.kernels import threefry as tk
 SEEDS = [0, 1, 0xACC_DE, 0x5EED, 2 ** 31 + 5]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These cases run many small tensor ops: one intra-op thread is as
-    fast alone and keeps parallel test workers from oversubscribing the
-    host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(params=[True, False], ids=["partitionable", "original"])
 def mode(request):
     """Set ``jax_threefry_partitionable`` for one test, then restore it."""

@@ -30,15 +30,6 @@ PATH = {"reference": "repro_torch.encode",
         "cuda_fused": "repro_torch.tokens_agreement"}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite's workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def sample():
     return SyntheticSource(SPEC, num_reads=90, present=[0, 2])

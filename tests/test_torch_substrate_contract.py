@@ -46,17 +46,6 @@ CENSUS_KEYS = {
 }
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These cases run many small tensor ops: one intra-op thread is as
-    fast alone and keeps parallel test workers from oversubscribing the
-    host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _config(backend="pcm_sim", **options):
     return ProfilerConfig(space=HDSpace(**SP), window=1024, batch_size=16,
                           backend=backend, backend_options=options,

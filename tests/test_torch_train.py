@@ -57,14 +57,6 @@ PARAM_ATOL = 1e-5
 TINY_G = 1e-6
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def depth(arch: str) -> int:
     """2 layers; Hymba's plan needs its smoke depth (a global layer at 0,
     n // 2 and n - 1 with sliding-window runs between)."""

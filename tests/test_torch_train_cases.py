@@ -25,8 +25,7 @@ from repro_torch import convert
 from repro_torch.data import lm_data
 from repro_torch.models import lm
 from repro_torch.train import optimizer, train_step as ts
-from tests.test_torch_train import (_one_torch_thread,  # noqa: F401
-                                    assert_grads_close, assert_metrics_close,
+from tests.test_torch_train import (assert_grads_close, assert_metrics_close,
                                     assert_moments_close, assert_params_close,
                                     batches, leaves, pair, run_both)
 

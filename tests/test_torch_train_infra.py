@@ -35,8 +35,7 @@ from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.launch import train as train_mod
 from repro_torch.train import compression as comp
 from repro_torch.train import train_step as ts
-from tests.test_torch_train import (_one_torch_thread,  # noqa: F401
-                                    batches, leaves, pair)
+from tests.test_torch_train import batches, leaves, pair
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -7,8 +7,7 @@ import pytest
 pytest.importorskip("jax")
 pytest.importorskip("torch")
 
-from tests.test_torch_train import (OTHER_ARCHS, _one_torch_thread,  # noqa: F401
-                                    check_three_steps)
+from tests.test_torch_train import OTHER_ARCHS, check_three_steps
 
 
 @pytest.mark.parametrize("arch", OTHER_ARCHS)
